@@ -46,6 +46,9 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running validation (opt in with --runslow)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (the PyTorch port's "
+                   "CUDA kernels); skipped where torch.cuda is unavailable")
 
 
 def pytest_collection_modifyitems(config, items):

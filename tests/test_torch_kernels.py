@@ -1,0 +1,181 @@
+"""The CUDA kernel wrappers of the port: dispatch on the CPU, and the
+kernels against their plain versions on a card.
+
+On a CPU tensor each wrapper runs its plain PyTorch version and launches
+nothing; the ``cuda``-marked cases build ``csrc/*.cu`` with nvcc and hold
+each kernel against its plain version, and skip where there is no card.
+``python3 chip_smoke.py`` runs the same checks at the main path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from waveforminversionust_tpu_torch.config import (PMLConfig, SolverConfig,
+                                                   SolverMethod)
+from waveforminversionust_tpu_torch.models.grid import Grid2D
+from waveforminversionust_tpu_torch.models.phantom import smooth_blob_phantom
+from waveforminversionust_tpu_torch.ops import (_build, apply, banded,
+                                                kernel_factor,
+                                                kernel_launch_counts,
+                                                kernel_stencil, kernel_sweep,
+                                                reset_kernel_launch_counts)
+from waveforminversionust_tpu_torch.ops import solve as tsolve
+from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
+
+F = 350e3
+
+
+def _planes(extent=12e-3, device="cpu"):
+    grid = Grid2D.centered(extent, 0.8e-3)
+    vel = smooth_blob_phantom(grid, radius=extent / 3, dc=60)
+    return helmholtz_coefficients(torch.as_tensor(vel, device=device), grid, F,
+                                  PMLConfig(l_pml=2.4e-3))
+
+
+def _fields(seed, shape, device="cpu"):
+    rng = np.random.default_rng(seed)
+    z = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    return torch.as_tensor(z.astype(np.complex64), device=device)
+
+
+def _rel(a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def test_cpu_wrappers_run_the_plain_versions():
+    """On CPU tensors the three wrappers return exactly their plain
+    versions' results and count no launch."""
+    coeffs = _planes()
+    b = _fields(0, (2,) + tuple(coeffs.shape[1:]))
+    reset_kernel_launch_counts()
+    fac = kernel_factor.banded_factor_kernel(coeffs)
+    assert torch.equal(fac.g, banded.banded_factor(coeffs).g)
+    for adjoint in (False, True):
+        assert torch.equal(kernel_sweep.banded_solve_kernel(fac, b, adjoint),
+                           banded.banded_solve(fac, b, adjoint))
+    assert torch.equal(kernel_stencil.h_apply_kernel(coeffs, b),
+                       apply.h_apply(coeffs, b))
+    assert kernel_launch_counts() == {"factor": 0, "sweep": 0, "stencil": 0}
+
+
+@pytest.mark.parametrize("factorization,fused_apply",
+                         [("auto", "auto"), ("pallas", "on"),
+                          ("thomas", "off")])
+def test_solver_config_dispatch(monkeypatch, factorization, fused_apply):
+    """``factorization`` "auto"/"pallas" and any ``fused_apply`` but "off"
+    route through the kernel wrappers; "thomas" and "off" through the
+    plain versions."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(tsolve, "banded_factor_kernel",
+                        spy("factor", kernel_factor.banded_factor_kernel))
+    monkeypatch.setattr(tsolve, "banded_solve_kernel",
+                        spy("sweep", kernel_sweep.banded_solve_kernel))
+    monkeypatch.setattr(tsolve, "h_apply_kernel",
+                        spy("stencil", kernel_stencil.h_apply_kernel))
+    cfg = SolverConfig(factorization=factorization, fused_apply=fused_apply,
+                       refine=1, pml=PMLConfig(l_pml=2.4e-3))
+    grid = Grid2D.centered(12e-3, 0.8e-3)
+    vel = torch.as_tensor(smooth_blob_phantom(grid, radius=4e-3, dc=60))
+    op = tsolve.make_helmholtz_operator(vel, F, grid, cfg)
+    tsolve.helmholtz_operator_solve(op, _fields(1, (1,) + grid.shape), grid,
+                                    cfg)
+    kernels = factorization != "thomas"
+    assert calls == (["factor", "sweep", "stencil", "sweep"] if kernels
+                     else [])
+
+
+@pytest.mark.parametrize("cfg", [SolverConfig(method=SolverMethod.GMRES),
+                                 SolverConfig(factorization="twisted"),
+                                 SolverConfig(factorization="cr"),
+                                 SolverConfig(factorization="spike")])
+def test_later_slices_raise(cfg):
+    grid = Grid2D.centered(4e-3, 0.8e-3)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tsolve.make_helmholtz_operator(torch.full(grid.shape, 1500.0), F,
+                                       grid, cfg)
+
+
+def test_build_key_follows_the_sources(monkeypatch, tmp_path):
+    """The build directory is keyed by the sources: an edited source gets a
+    new key, so a stale library is never loaded."""
+    key = _build._key()
+    assert len(key) == 16 and key == _build._key()
+    for name in _build.SOURCES:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert 'extern "C"' in src
+        (tmp_path / f"{name}.cu").write_text(src)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._key() == key
+    edited = tmp_path / "sweep.cu"
+    edited.write_text(edited.read_text() + "\n// edited\n")
+    assert _build._key() != key
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# -- on a card -------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_factor_kernel_matches_plain(cuda):
+    """K1 on 61x61 (nx not a panel multiple) vs the plain factor in
+    complex128: rel < 5e-6 (tests/test_pallas_factor.py's bound)."""
+    coeffs = _planes(24e-3, cuda)
+    g = kernel_factor.banded_factor_kernel(coeffs).g
+    g64 = banded.banded_factor(coeffs.to(torch.complex128)).g
+    torch.cuda.synchronize()
+    assert _rel(g.to(torch.complex128), g64) < 5e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_sweep_kernel_matches_plain(cuda, adjoint):
+    """K2 vs the plain sweeps through the same factor: rel < 1e-5."""
+    coeffs = _planes(24e-3, cuda)
+    fac = banded.banded_factor(coeffs)
+    b = _fields(2, (9,) + tuple(coeffs.shape[1:]), cuda)
+    x = kernel_sweep.banded_solve_kernel(fac, b, adjoint)
+    torch.cuda.synchronize()
+    assert _rel(x, banded.banded_solve(fac, b, adjoint)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_stencil_kernel_matches_plain(cuda, adjoint):
+    """K3 (fed the adjoint planes for H^H) vs the plain apply: rel < 1e-6."""
+    coeffs = _planes(24e-3, cuda)
+    u = _fields(3, (11,) + tuple(coeffs.shape[1:]), cuda)
+    planes = apply.adjoint_coefficients(coeffs) if adjoint else coeffs
+    out = kernel_stencil.h_apply_kernel(planes, u)
+    torch.cuda.synchronize()
+    plain = apply.h_apply_adjoint if adjoint else apply.h_apply
+    assert _rel(out, plain(coeffs, u)) < 1e-6
+
+
+@pytest.mark.cuda
+def test_launch_counts_are_kernel_launches(cuda):
+    """Each wrapper counts the kernels its C entry point launched: on 31x31
+    (one masked Gauss-Jordan panel) a factorization is 4 launches per row
+    (build_s, pivot_gj, panel_gemm, update_gemm), a solve 2, an apply 1."""
+    coeffs = _planes(12e-3, cuda)
+    ny = coeffs.shape[1]
+    b = _fields(4, (3,) + tuple(coeffs.shape[1:]), cuda)
+    reset_kernel_launch_counts()
+    fac = kernel_factor.banded_factor_kernel(coeffs)
+    kernel_sweep.banded_solve_kernel(fac, b, True)
+    kernel_stencil.h_apply_kernel(coeffs, b)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == {"factor": 4 * ny, "sweep": 2, "stencil": 1}

@@ -1,0 +1,31 @@
+"""PyTorch/CUDA port of ``waveforminversionust_tpu``: frequency-domain
+full-waveform inversion for ring-array ultrasound tomography on an NVIDIA
+H100, with hand-written CUDA kernels for the block-Thomas factorization,
+its solve sweeps and the 9-point operator apply (``csrc/``).
+
+The JAX package beside it is the reference; this package imports ``torch``
+and never ``jax``. All math is FP32 (complex64). TF32 is off for matrix
+products and convolutions so that no library path rounds below FP32.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .config import (AcquisitionConfig, ContinuationConfig,  # noqa: E402
+                     FWIConfig, MomentumFormula, PMLConfig, SolverConfig,
+                     SolverMethod, StencilConfig, StepSizeFormula)
+from .data.synthesize import RingDataset, synthesize_ring_dataset  # noqa: E402
+from .fwi.objective import FWIData, build_fwi_data  # noqa: E402
+from .fwi.optimizers import CGResult, nonlinear_cg  # noqa: E402
+from .fwi.runner import (default_inversion_grid, invert_dataset,  # noqa: E402
+                         reconstruction_rmse)
+from .models.acquisition import (RingAcquisition,  # noqa: E402
+                                 build_ring_acquisition)
+from .models.grid import Grid2D  # noqa: E402
+from .ops import kernel_launch_counts, reset_kernel_launch_counts  # noqa: E402
+from .ops.solve import (HelmholtzOperator, helmholtz_operator_solve,  # noqa: E402
+                        make_helmholtz_operator, solve_helmholtz)
+
+__version__ = "0.1.0"

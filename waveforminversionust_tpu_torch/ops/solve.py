@@ -1,0 +1,204 @@
+"""Helmholtz solves through the block-Thomas factor (port of the banded
+subset of ``waveforminversionust_tpu/ops/solve.py``).
+
+Boundary-row bookkeeping, as in the reference: the planes describe the
+balanced operator H_s = D H, D = diag(1/h^2 on the border, 1 inside).
+  * forward solve  H u = s   <=>  H_s u = D s        (scale the RHS by D)
+  * adjoint solve  H^H u = s <=>  H_s^H w = s, u = D w  (balanced w-space)
+
+Kernel dispatch (see ``config.py``): ``factorization`` "auto"/"pallas" runs
+the CUDA factor and sweep kernels (their plain versions on CPU tensors),
+"thomas" the plain PyTorch block-Thomas everywhere; ``fused_apply`` "off"
+runs the plain apply, anything else the CUDA stencil kernel. No wrapper
+falls back: a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import SolverConfig, SolverMethod
+from ..models.grid import Grid2D
+from . import apply, banded
+from .banded import BandedFactor
+from .kernel_factor import banded_factor_kernel
+from .kernel_stencil import h_apply_kernel
+from .kernel_sweep import banded_solve_kernel
+from .stencil import d_map as _d_map
+from .stencil import helmholtz_coefficients
+
+
+class SolveInfo(NamedTuple):
+    rel_residual: torch.Tensor  # (batch,) final relative residual
+    iterations: int
+
+
+class HelmholtzOperator(NamedTuple):
+    """A prepared operator for one (vel, f): planes, factor and the
+    boundary row-scale map. One factor serves the forward, adjoint and
+    linearized solves of an FWI iteration."""
+
+    vel: torch.Tensor
+    f: float
+    coeffs: torch.Tensor          # H_s planes (9, ny, nx) complex64
+    precond: None                 # GMRES preconditioner (not ported yet)
+    factor: BandedFactor | None
+    d_map: torch.Tensor           # (ny, nx) float32
+    attenuation: torch.Tensor | None = None
+
+
+def _check_method(cfg: SolverConfig):
+    if cfg.method != SolverMethod.BANDED:
+        raise NotImplementedError(
+            f"method={cfg.method.value!r}: the GMRES and Born solvers are "
+            f"ported in a later slice (ROADMAP.md A, slice 3); use the "
+            f"banded method")
+
+
+def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig) -> BandedFactor:
+    """Block-Thomas factorization per ``cfg.factorization``."""
+    mode = cfg.factorization
+    if mode in ("auto", "pallas"):
+        return banded_factor_kernel(coeffs)
+    if mode == "thomas":
+        return banded.banded_factor(coeffs)
+    if mode in ("twisted", "cr"):
+        raise NotImplementedError(
+            f"factorization={mode!r} is ported in a later slice (ROADMAP.md "
+            f"A, slice 6)")
+    if mode == "spike":
+        raise NotImplementedError(
+            "factorization='spike' (grid-sharded) is ported in a later slice "
+            "(ROADMAP.md A, slice 7)")
+    raise ValueError(f"unknown factorization {mode!r}")
+
+
+def _sweeps(cfg: SolverConfig):
+    return (banded.banded_solve if cfg.factorization == "thomas"
+            else banded_solve_kernel)
+
+
+def make_apply(coeffs: torch.Tensor, cfg: SolverConfig, adjoint: bool = False):
+    """Operator-apply closure H v (or H^H v): the CUDA stencil kernel (fed
+    the re-centred conjugate planes for the adjoint) unless
+    ``cfg.fused_apply == "off"``."""
+    if cfg.fused_apply == "off":
+        if adjoint:
+            return lambda v: apply.h_apply_adjoint(coeffs, v)
+        return lambda v: apply.h_apply(coeffs, v)
+    planes = apply.adjoint_coefficients(coeffs) if adjoint else coeffs
+    return lambda v: h_apply_kernel(planes, v.contiguous())
+
+
+def banded_solve_refined(factor: BandedFactor, rhs: torch.Tensor,
+                         cfg: SolverConfig, adjoint: bool,
+                         extra_refine: bool | None = None,
+                         refine_coeffs: torch.Tensor | None = None):
+    """Sweeps through ``factor`` plus ``cfg.refine`` refinement passes, plus
+    one more when ``extra_refine`` is true (the frozen-factor CG's stale
+    iterations). The refinement residual targets ``refine_coeffs``
+    (default: the factor's own planes) while the factor, G together with
+    its own planes, stays whole: a stale G spliced with current planes is
+    not a factorization of anything and its recurrences overflow f32 at
+    601 rows."""
+    base = _sweeps(cfg)
+    x = base(factor, rhs, adjoint=adjoint)
+    passes = cfg.refine + (1 if extra_refine else 0)
+    if passes:
+        opfn = make_apply(factor.coeffs if refine_coeffs is None
+                          else refine_coeffs, cfg, adjoint=adjoint)
+        for _ in range(passes):
+            x = x + base(factor, rhs - opfn(x), adjoint=adjoint)
+    return x
+
+
+def make_helmholtz_operator(vel, f, grid: Grid2D,
+                            cfg: SolverConfig = SolverConfig(),
+                            attenuation=None, pml_fields=None,
+                            mesh=None) -> HelmholtzOperator:
+    """Build the planes of H(vel) and factor them once."""
+    _check_method(cfg)
+    if mesh is not None:
+        raise NotImplementedError("mesh= (multi-device) is ported in a later "
+                                  "slice (ROADMAP.md A, slice 7)")
+    vel = torch.as_tensor(vel, dtype=torch.float32)
+    coeffs = helmholtz_coefficients(vel, grid, f, cfg.pml, cfg.stencil,
+                                    attenuation=attenuation,
+                                    pml_fields=pml_fields)
+    return HelmholtzOperator(
+        vel=vel, f=float(f), coeffs=coeffs, precond=None,
+        factor=factor_operator(coeffs, cfg), d_map=_d_map(grid, vel.device),
+        attenuation=None if attenuation is None else torch.as_tensor(
+            attenuation, dtype=torch.float32, device=vel.device))
+
+
+def helmholtz_operator_solve(op: HelmholtzOperator, src, grid: Grid2D,
+                             cfg: SolverConfig = SolverConfig(),
+                             adjoint: bool = False, x0=None, mesh=None,
+                             precision=None, extra_refine=None):
+    """Solve H u = src (or H^H u = src) with a prepared operator; src is
+    (batch, ny, nx) or (ny, nx) complex64.
+
+    ``precision`` (the ``fast_*`` sweeps of the reference) is accepted and
+    runs FP32 here. ``x0`` is a Krylov warm start and unused by the banded
+    method, as in the reference. ``extra_refine``: one more refinement pass
+    against ``op.coeffs`` when true (frozen-factor CG, stale iterations).
+    """
+    _check_method(cfg)
+    if mesh is not None:
+        raise NotImplementedError("mesh= (multi-device) is ported in a later "
+                                  "slice (ROADMAP.md A, slice 7)")
+    src = torch.as_tensor(src).to(torch.complex64)
+    single = src.dim() == 2
+    if single:
+        src = src[None]
+    rhs = src if adjoint else src * op.d_map
+    u = banded_solve_refined(op.factor, rhs.contiguous(), cfg, adjoint=adjoint,
+                             extra_refine=extra_refine,
+                             refine_coeffs=op.coeffs)
+    if adjoint:
+        u = u * op.d_map
+    return u[0] if single else u
+
+
+def solve_helmholtz(vel, src, f, grid: Grid2D,
+                    config: SolverConfig = SolverConfig(),
+                    adjoint: bool = False, x0=None, attenuation=None):
+    """Solve H(vel) u = src (or H^H u = src) for a batch of sources, one
+    factorization per call; returns (u, SolveInfo) with the true relative
+    residual per source. The adjoint factors the H_s^H planes and solves
+    in balanced w-space (u = D w), as the reference does. ``x0``: solve
+    for the correction from a warm start."""
+    _check_method(config)
+    vel = torch.as_tensor(vel, dtype=torch.float32)
+    src = torch.as_tensor(src).to(device=vel.device, dtype=torch.complex64)
+    single = src.dim() == 2
+    if single:
+        src = src[None]
+    coeffs = helmholtz_coefficients(vel, grid, f, config.pml, config.stencil,
+                                    attenuation=attenuation)
+    if adjoint:
+        coeffs = apply.adjoint_coefficients(coeffs)
+    dmap = _d_map(grid, vel.device)
+    rhs = src if adjoint else src * dmap
+    factor = factor_operator(coeffs, config)
+    opfn = make_apply(coeffs, config)
+    if x0 is not None:
+        x0 = torch.as_tensor(x0).to(device=vel.device, dtype=torch.complex64)
+        if x0.dim() == 2:
+            x0 = x0[None]
+        if adjoint:
+            x0 = x0 / dmap
+        w = x0 + banded_solve_refined(factor, (rhs - opfn(x0)).contiguous(),
+                                      config, adjoint=False)
+    else:
+        w = banded_solve_refined(factor, rhs.contiguous(), config,
+                                 adjoint=False)
+    res = opfn(w) - rhs
+    rel = torch.sqrt(torch.sum(torch.abs(res) ** 2, dim=(1, 2))
+                     / torch.clamp(torch.sum(torch.abs(rhs) ** 2, dim=(1, 2)),
+                                   min=1e-38))
+    u = w * dmap if adjoint else w
+    return (u[0] if single else u), SolveInfo(rel, -1)
