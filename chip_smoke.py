@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py            # the full check, under a minute on an H100
+    python3 chip_smoke.py            # the full check, about a minute on an H100
+    python3 chip_smoke.py --phases kernels,data,profile   # a subset
 
 Phases (any failure makes the exit code non-zero):
   1. device and build: the card, its power limit, the nvcc build of
      waveforminversionust_tpu_torch/csrc/*.cu (one nvcc per source, in
      parallel) and its seconds;
-  2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes, with its relative Frobenius error, max abs error
-     and the time of both;
+  2. kernels: every kernel against its plain PyTorch version on the card, at
+     its path's shapes, with its relative Frobenius error, max abs error,
+     the time of both, the least time the card could take (bound) and, where
+     one PyTorch call computes the same function, that call's time;
   3. data: a 256-element ring dataset synthesized over a breast phantom on
      a 401^2 / 0.6 mm grid at 350 kHz (seed 0) through the kernels;
-  4. the slice: 10 nonlinear-CG iterations at 301^2 / 0.8 mm, 256
-     transmitters, refactor_every=2, from 1480 m/s; one warm-up run, then a
-     timed run with the kernel launch counts reset just before it;
-  5. slice parity: 2 iterations through the kernels and through the plain
-     PyTorch path, held to the golden bounds.
+  4. the slices: 10 nonlinear-CG iterations at 301^2 / 0.8 mm, 256
+     transmitters, refactor_every=2, from 1480 m/s, through each direct
+     engine: block-Thomas (``slice``, the main path), twisted
+     (``slice_twisted``) and cyclic reduction (``slice_cr``). Each is one
+     warm-up run, then a timed run with the kernel launch counts set to 0
+     just before it and read just after; the two opt-in engines are held to
+     the block-Thomas trajectory;
+  5. parity: 2 iterations of each engine through the kernels and through the
+     plain PyTorch functions on the same CUDA tensors, held to the golden
+     bounds;
+  6. profile (only when asked for): torch.profiler over 2 iterations of each
+     engine, device time by kernel name and the idle share.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -26,33 +35,63 @@ non-zero and prints no result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
 import traceback
+from unittest import mock
 
 import numpy as np
 
 PALLAS = "waveforminversionust_tpu/ops/"
-# The kernels of the main path, one row each in the "kernels" line. The
-# stencil kernel also serves the TPU's tiled call site
-# (pallas_stencil.py:230), which the main path does not reach at 301^2:
-# phase 2 checks it at 801^2 ("stencil_801") without a row of its own.
+CSRC = "waveforminversionust_tpu_torch/csrc/"
+# One row each in the "kernels" line. The stencil kernel also serves the
+# TPU's tiled call site (pallas_stencil.py:230), which no slice reaches at
+# 301^2: phase 2 checks it at 801^2 ("stencil_801") without a row of its own.
 KERNELS = {
-    "factor": dict(source="waveforminversionust_tpu_torch/csrc/factor.cu",
+    "factor": dict(source=CSRC + "factor.cu",
                    replaces=PALLAS + "pallas_factor.py:384"),
-    "sweep": dict(source="waveforminversionust_tpu_torch/csrc/sweep.cu",
+    "sweep": dict(source=CSRC + "sweep.cu",
                   replaces=PALLAS + "pallas_sweep.py:220"),
-    "stencil": dict(source="waveforminversionust_tpu_torch/csrc/stencil.cu",
+    "stencil": dict(source=CSRC + "stencil.cu",
                     replaces=PALLAS + "pallas_stencil.py:273"),
+    "twisted_factor": dict(source=CSRC + "twisted.cu",
+                           replaces=PALLAS + "pallas_twisted.py:232"),
+    "twisted_sweep": dict(source=CSRC + "twisted.cu",
+                          replaces=PALLAS + "pallas_twisted.py:399"),
+    "batched_inv": dict(source=CSRC + "inv.cu",
+                        replaces=PALLAS + "pallas_inv.py:81"),
 }
-# Tolerances: K1 the bound of tests/test_pallas_factor.py:39; K2 and K3 the
-# port's issue bounds (f32 sums taken in another order than the plain path).
-TOL = {"factor": 5e-6, "sweep": 1e-5, "stencil": 1e-6, "stencil_801": 1e-6}
-N_ITER = 10  # CG iterations of the timed slice (bench.py's N_ITER)
+# Tolerances: the factors the bound of tests/test_pallas_factor.py:39; the
+# sweeps and K3 the port's own bounds (f32 sums taken in another order than
+# the plain path); K5 the bound of tests/test_batched_inv.py:82.
+TOL = {"factor": 5e-6, "sweep": 1e-5, "stencil": 1e-6, "stencil_801": 1e-6,
+       "twisted_factor": 5e-6, "twisted_sweep": 1e-5, "batched_inv": 5e-5,
+       "batched_inv_16": 5e-5}
+# A trajectory against another (an engine against block-Thomas, a kernel
+# path against its plain path): rtol of loss and step, atol of velocity as
+# a fraction of its largest value. GOLDEN is tests/test_golden.py's (0.5 of
+# ~1600 m/s). Cyclic reduction cannot hold it in FP32 at 301^2: unpivoted, on
+# the indefinite operator, its solves sit ~1e-2 from exact on random
+# right-hand sides (block-Thomas and twisted ~3e-6; in complex128 it is
+# exact to 1e-11, so it is rounding, which phase 2 prints). Its trajectory is
+# held to the reference's own bound for this engine against block-Thomas
+# (tests/test_cyclic.py:170-174: velocity atol 2e-3 of its largest value),
+# to the golden loss rtol, and to a step rtol of 5e-2 (the step is a ratio
+# of two sums of such fields; measured 8.7e-3 over 10 iterations).
+GOLDEN = dict(loss=1e-2, step=1e-2, vel_atol=0.5, vel_frac=None)
+CR_BOUNDS = dict(loss=1e-2, step=5e-2, vel_atol=None, vel_frac=2e-3)
+N_ITER = 10  # CG iterations of the timed slices (bench.py's N_ITER)
 BIG = 801    # grid side of the tiled call site's check
 REPS = 5     # timed calls per kernel case, after one warm-up call
+# Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
+# tensor cores (every kernel here is FP32 FMA code) and HBM3.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+C64 = 8      # bytes of a complex64
+CMAC = 8     # real FP32 operations of a complex multiply-add
 
 
 def log(*a):
@@ -78,6 +117,38 @@ def timed(fn, reps):
     return out, start.elapsed_time(end) / reps
 
 
+def host_timed(fn):
+    """(result, ms) of one call on the host clock, ended by a synchronize:
+    for the plain factors, a Python loop of hundreds of small calls."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def bound(flops, nbytes):
+    """The least ms the card could take: each input byte read once and each
+    output byte written once over the memory rate, or the operations over
+    the FP32 peak, whichever is larger; and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@contextlib.contextmanager
+def plain_engines():
+    """Route the opt-in engines' kernel wrappers to their plain PyTorch
+    versions, so that the plain functions run on the same CUDA tensors
+    (block-Thomas has ``factorization="thomas"`` for that)."""
+    from waveforminversionust_tpu_torch.ops import batched_inv, solve, twisted
+    with mock.patch.object(solve, "twisted_factor_kernel", twisted.twisted_factor), \
+            mock.patch.object(solve, "twisted_solve_kernel", twisted.twisted_solve), \
+            mock.patch.object(batched_inv, "batched_small_inv_kernel",
+                              batched_inv._batched_pivot_inv):
+        yield
+
+
 class Smoke:
     """The phases, at the main path's shapes (bench.py::bench_2d): the
     301^2 / 0.8 mm grid and the reference 256-element ring."""
@@ -93,6 +164,8 @@ class Smoke:
         self.kernels: dict[str, dict] = {}
         self.per_call: dict[str, float] = {}
         self.bad: list[str] = []
+        self.slices: dict[str, dict] = {}
+        self.launches = dict.fromkeys(KERNELS, 0)
 
     def phase(self, name, fn):
         log(f"== phase {name}")
@@ -118,23 +191,35 @@ class Smoke:
         return out, ms
 
     # -- phase 2 --------------------------------------------------------
-    def record(self, name, kern, plain, ms, plain_ms):
+    def record(self, name, kern, plain, ms, plain_ms, bound_ms=None,
+               library_ms=None):
         """Hold a kernel's output against its plain version's; a failed
-        bound is collected so that every kernel is still measured."""
+        bound is collected so that every kernel is still measured.
+        ``bound_ms``: (ms, "bytes" | "operations") for this case's inputs."""
         import torch
         rel = rel_err(kern, plain)
         mx = float(torch.max(torch.abs(kern - plain)))
         ok = bool(np.isfinite(rel)) and rel < TOL[name]
         # Over a kernel's cases: the worst error and the mean times.
         ent = self.kernels.setdefault(name, dict(max_abs_err=0.0, rel=0.0,
-                                                 runs=[]))
+                                                 runs=[], library=[]))
         ent["runs"].append((ms, plain_ms))
+        if library_ms is not None:
+            ent["library"].append(library_ms)
         ent.update(max_abs_err=max(ent["max_abs_err"], mx),
                    rel=max(ent["rel"], rel),
                    ms=float(np.mean([r[0] for r in ent["runs"]])),
-                   plain_ms=float(np.mean([r[1] for r in ent["runs"]])))
+                   plain_ms=float(np.mean([r[1] for r in ent["runs"]])),
+                   library_ms=(float(np.mean(ent["library"]))
+                               if ent["library"] else None))
+        extra = ""
+        if bound_ms is not None:
+            ent.update(bound_ms=bound_ms[0], bound_by=bound_ms[1])
+            extra += f" bound {bound_ms[0]:.4f} ms ({bound_ms[1]})"
+        if library_ms is not None:
+            extra += f" library {library_ms:.3f} ms"
         log(f"  {name}: rel {rel:.3e} (bound {TOL[name]:.0e}) max_abs "
-            f"{mx:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            f"{mx:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms{extra} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             self.bad.append(f"{name}: rel {rel:.3e} >= {TOL[name]:.0e}")
@@ -142,59 +227,97 @@ class Smoke:
     def kernels_vs_plain(self):
         import torch
         from waveforminversionust_tpu_torch.config import SolverConfig
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
         from waveforminversionust_tpu_torch.models.phantom import breast_phantom
-        from waveforminversionust_tpu_torch.ops import apply, banded
+        from waveforminversionust_tpu_torch.ops import (apply, banded,
+                                                        batched_inv, cyclic,
+                                                        twisted)
         from waveforminversionust_tpu_torch.ops.kernel_factor import banded_factor_kernel
+        from waveforminversionust_tpu_torch.ops.kernel_inv import batched_small_inv_kernel
         from waveforminversionust_tpu_torch.ops.kernel_stencil import h_apply_kernel
         from waveforminversionust_tpu_torch.ops.kernel_sweep import banded_solve_kernel
+        from waveforminversionust_tpu_torch.ops.kernel_twisted import (
+            twisted_factor_kernel, twisted_solve_kernel)
         from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
 
         dev, cfg = self.device, SolverConfig()
         grid = self.grid
         ny, nx = grid.shape
+        n_rhs = self.n_tx
         rng = np.random.default_rng(0)
+        c128 = torch.complex128
         phantoms = {"breast": breast_phantom(grid),
                     "1480": np.full(grid.shape, 1480.0, np.float32)}
-        fac = None
+        # Both factorizations: ny Gauss-Jordan inverses of nx x nx (nx^3
+        # complex multiply-adds each); planes in, inverses out.
+        factor_bound = bound(ny * CMAC * nx ** 3,
+                             (9 * ny * nx + ny * nx * nx) * C64)
+        fac = tfac = None
         for label, vel in phantoms.items():
             coeffs = helmholtz_coefficients(torch.as_tensor(vel, device=dev),
                                             grid, 350e3, cfg.pml, cfg.stencil)
             fk, ms = self.time_kernel("factor", lambda: banded_factor_kernel(coeffs))
-            t0 = time.perf_counter()
-            fp = banded.banded_factor(coeffs)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            fp, plain_ms = host_timed(lambda: banded.banded_factor(coeffs))
             # K1's bound is held against the plain factor computed in
             # complex128: the FP32 kernel (blocked Gauss-Jordan) and the FP32
             # plain version (pivoted LU) each sit a few 1e-6 from the exact
             # factor at 301^2, so their mutual distance sums two FP32 errors.
-            g64 = banded.banded_factor(coeffs.to(torch.complex128)).g
+            g64 = banded.banded_factor(coeffs.to(c128)).g
             log(f" K1 factor on the {label} planes ({ny}x{nx}); FP32 kernel "
-                f"vs FP32 plain {rel_err(fk.g.to(g64.dtype), fp.g.to(g64.dtype)):.3e}, "
+                f"vs FP32 plain {rel_err(fk.g.to(c128), fp.g.to(c128)):.3e}, "
                 f"FP32 plain vs complex128 plain "
-                f"{rel_err(fp.g.to(g64.dtype), g64):.3e}; kernel vs complex128 plain:")
-            self.record("factor", fk.g.to(g64.dtype), g64, ms, plain_ms)
-            if fac is None:
-                fac = fk
-            del g64
+                f"{rel_err(fp.g.to(c128), g64):.3e}; kernel vs complex128 plain:")
+            self.record("factor", fk.g.to(c128), g64, ms, plain_ms, factor_bound)
+            del g64, fp
 
-        b = torch.as_tensor((rng.standard_normal((self.n_tx, ny, nx))
-                             + 1j * rng.standard_normal((self.n_tx, ny, nx))
+            tk, ms = self.time_kernel("twisted_factor",
+                                      lambda: twisted_factor_kernel(coeffs))
+            tp, plain_ms = host_timed(lambda: twisted.twisted_factor(coeffs))
+            t64 = twisted.twisted_factor(coeffs.to(c128)).g
+            log(f" K4a twisted factor on the {label} planes, middle row "
+                f"{tk.m}; rows above it vs K1's kernel factor (the same "
+                f"matrices) {rel_err(tk.g[:tk.m], fk.g[:tk.m]):.3e}; FP32 "
+                f"plain vs complex128 plain {rel_err(tp.g.to(c128), t64):.3e}; "
+                f"kernel vs complex128 plain:")
+            self.record("twisted_factor", tk.g.to(c128), t64, ms, plain_ms,
+                        factor_bound)
+            del t64, tp
+            if fac is None:
+                fac, tfac = fk, tk
+
+        b = torch.as_tensor((rng.standard_normal((n_rhs, ny, nx))
+                             + 1j * rng.standard_normal((n_rhs, ny, nx))
                              ).astype(np.complex64), device=dev)
+        # Both solves: 2 ny - 1 gemvs of nx x nx per right-hand side;
+        # inverses, planes and b in, x out.
+        sweep_bound = bound((2 * ny - 1) * CMAC * nx * nx * n_rhs,
+                            (ny * nx * nx + 9 * ny * nx + 2 * b.numel()) * C64)
         for adjoint in (False, True):
+            op = apply.h_apply_adjoint if adjoint else apply.h_apply
             xk, ms = self.time_kernel("sweep", lambda: banded_solve_kernel(fac, b, adjoint))
             xp, plain_ms = timed(lambda: banded.banded_solve(fac, b, adjoint), REPS)
-            log(f" K2 sweeps, adjoint={adjoint}, {self.n_tx} RHS:")
-            self.record("sweep", xk, xp, ms, plain_ms)
-            op = apply.h_apply_adjoint if adjoint else apply.h_apply
+            log(f" K2 sweeps, adjoint={adjoint}, {n_rhs} RHS:")
+            self.record("sweep", xk, xp, ms, plain_ms, sweep_bound)
             res = rel_err(op(fac.coeffs, xk), b)
             log(f"  true relative residual of the kernel solve: {res:.3e}")
             if not res < 2e-5:
                 self.bad.append(f"sweep residual {res:.3e} >= 2e-5")
 
-        from waveforminversionust_tpu_torch.models.grid import Grid2D
+            tx, ms = self.time_kernel("twisted_sweep",
+                                      lambda: twisted_solve_kernel(tfac, b, adjoint))
+            tp, plain_ms = timed(lambda: twisted.twisted_solve(tfac, b, adjoint), REPS)
+            log(f" K4b twisted sweeps, adjoint={adjoint}, {n_rhs} RHS; "
+                f"distance to K2's solution of the same system "
+                f"{rel_err(tx, xk):.3e}:")
+            self.record("twisted_sweep", tx, tp, ms, plain_ms, sweep_bound)
+            res = rel_err(op(tfac.coeffs, tx), b)
+            log(f"  true relative residual of the kernel solve: {res:.3e}")
+            if not res < 2e-5:
+                self.bad.append(f"twisted sweep residual {res:.3e} >= 2e-5")
+            del xk, xp, tx, tp
+
         for label, gsize, batch, name in (
-                ("whole-field site", grid, self.n_tx, "stencil"),
+                ("whole-field site", grid, n_rhs, "stencil"),
                 ("tiled site", Grid2D.centered(0.4e-3 * (BIG - 1), 0.8e-3), 4,
                  "stencil_801")):
             vel = breast_phantom(gsize)
@@ -205,6 +328,9 @@ class Smoke:
                                  + 1j * rng.standard_normal(shape)
                                  ).astype(np.complex64), device=dev)
             adj = apply.adjoint_coefficients(coeffs)
+            # 9 complex multiply-adds per point; planes and u in, H u out.
+            stencil_bound = bound(9 * CMAC * u.numel(),
+                                  (coeffs.numel() + 2 * u.numel()) * C64)
             for adjoint in (False, True):
                 planes = adj if adjoint else coeffs
                 ok_, ms = self.time_kernel("stencil", lambda: h_apply_kernel(planes, u))
@@ -212,8 +338,92 @@ class Smoke:
                 op_, plain_ms = timed(lambda: plain(coeffs, u), REPS)
                 log(f" K3 apply, {label}, {gsize.ny}^2 x {batch}, "
                     f"adjoint={adjoint}:")
-                self.record(name, ok_, op_, ms, plain_ms)
+                self.record(name, ok_, op_, ms, plain_ms, stencil_bound)
+
+        # K5 at the cyclic-reduction path's shape: the level-0 pivot blocks
+        # of the 301^2 breast operator (the first 64 x 64 panel of every odd
+        # row's tri(D); 150 of them) and a seeded batch of the same shape
+        # with a boosted diagonal; then a small ragged case.
+        block = 64
+        c = fac.coeffs
+        odd = slice(1, None, 2)
+        level0 = cyclic._btri_dense(c[0, odd], c[1, odd], c[2, odd]
+                                    )[:, :block, :block].contiguous()
+
+        def batch_of(n, bsz):
+            a = (rng.standard_normal((n, bsz, bsz))
+                 + 1j * rng.standard_normal((n, bsz, bsz))) / np.sqrt(bsz)
+            return torch.as_tensor((a + 2 * np.eye(bsz)).astype(np.complex64),
+                                   device=dev)
+
+        for label, p, name in (
+                ("level-0 pivot blocks of the breast operator", level0,
+                 "batched_inv"),
+                ("seeded random batch", batch_of(level0.shape[0], block),
+                 "batched_inv"),
+                ("seeded random batch", batch_of(5, 16), "batched_inv_16")):
+            n, bsz = p.shape[0], p.shape[1]
+            out, ms = self.time_kernel("batched_inv",
+                                       lambda: batched_small_inv_kernel(p))
+            _, plain_ms = timed(lambda: batched_inv._batched_pivot_inv(p), REPS)
+            lib, library_ms = timed(lambda: torch.linalg.inv(p), REPS)
+            want = batched_inv._batched_pivot_inv(p.to(c128))
+            log(f" K5 batched inverse, {label}, ({n}, {bsz}, {bsz}); "
+                f"torch.linalg.inv vs complex128 plain "
+                f"{rel_err(lib.to(c128), want):.3e}; kernel vs complex128 plain:")
+            # b^3 complex multiply-adds a matrix; the batch in, its inverse out.
+            self.record(name, out.to(c128), want, ms, plain_ms,
+                        bound(n * CMAC * bsz ** 3, 2 * p.numel() * C64),
+                        library_ms)
+
+        self.cr_engine(c, b)
         self.check(not self.bad, f"kernel checks failed: {self.bad}")
+
+    def cr_engine(self, c, b):
+        """The cyclic-reduction engine around K5 (its dense products are
+        torch.bmm, outside any kernel): its times, and how exact its FP32
+        solves are at this size: bare, after one refinement pass, with
+        pivoted LU inverses in place of the Gauss-Jordan ones, and beside
+        the same code run in complex128."""
+        import torch
+        from waveforminversionust_tpu_torch.ops import apply, cyclic
+
+        c128 = torch.complex128
+        n_rhs, ny, nx = b.shape
+        crf, factor_ms = timed(lambda: cyclic.cr_factor(c), 2)
+        log(f" cyclic reduction at {ny}x{nx}: factorization {factor_ms:.3f} "
+            f"ms, {len(crf.levels)} levels")
+        for adjoint in (False, True):
+            op = apply.h_apply_adjoint if adjoint else apply.h_apply
+            x, ms = timed(lambda: cyclic.cr_solve(crf, b, adjoint), 2)
+            res0 = rel_err(op(c, x), b)
+            x = x + cyclic.cr_solve(crf, b - op(c, x), adjoint)
+            res1 = rel_err(op(c, x), b)
+            log(f"  solve adjoint={adjoint}, {n_rhs} RHS: {ms:.3f} ms; true "
+                f"relative residual {res0:.3e}, after one refinement pass "
+                f"{res1:.3e}")
+            if not (res1 < res0 and res1 < 1e-3):
+                self.bad.append(f"cr residual {res0:.3e} -> {res1:.3e}")
+        del x
+        with mock.patch.object(cyclic, "batched_inv",
+                               lambda a, block=64: torch.linalg.inv(a)):
+            lu = cyclic.cr_factor(c)
+        res_lu = rel_err(apply.h_apply(c, cyclic.cr_solve(lu, b)), b)
+        del lu
+        few = b[:16].to(c128)
+        with plain_engines():  # K5 is complex64 only
+            f128 = cyclic.cr_factor(c.to(c128))
+        res128 = rel_err(apply.h_apply(c.to(c128), cyclic.cr_solve(f128, few)),
+                         few)
+        by_level = [rel_err(lev.dinv.to(c128), lev128.dinv)
+                    for lev, lev128 in zip(crf.levels, f128.levels)]
+        log(f"  with torch.linalg.inv (pivoted LU) for every inverse: residual "
+            f"{res_lu:.3e}; the same code in complex128: residual "
+            f"{res128:.3e}; the FP32 factor's odd-row inverses against the "
+            f"complex128 ones, by level: "
+            f"{[float(f'{e:.1e}') for e in by_level]}")
+        if not res128 < 1e-9:
+            self.bad.append(f"complex128 cr residual {res128:.3e}")
 
     # -- phase 3 --------------------------------------------------------
     def data(self):
@@ -223,13 +433,14 @@ class Smoke:
         from waveforminversionust_tpu_torch.models.grid import Grid2D
         from waveforminversionust_tpu_torch.models.phantom import breast_phantom
 
-        # bench.py's fallback data: the same ring over a 0.6 mm grid.
+        # bench.py's fallback data: the same ring over a 0.6 mm grid. No
+        # device is named: the entry point runs on the card by default.
         fine = Grid2D.centered(120e-3, 0.6e-3)
         t0 = time.perf_counter()
         self.ds = synthesize_ring_dataset(breast_phantom(fine), fine,
                                           self.acq_config,
                                           f=350e3, solver=SolverConfig(),
-                                          seed=0, device=self.device)
+                                          seed=0)
         torch.cuda.synchronize()
         rec = self.ds.rec_data
         log(f" synthesized {rec.shape} on {fine.ny}^2 in "
@@ -240,20 +451,23 @@ class Smoke:
     # -- phase 4 --------------------------------------------------------
     def _setup(self):
         import torch
+        from waveforminversionust_tpu_torch.config import FWIConfig
         from waveforminversionust_tpu_torch.fwi.objective import build_fwi_data
         from waveforminversionust_tpu_torch.models.acquisition import build_ring_acquisition
-
-        from waveforminversionust_tpu_torch.config import FWIConfig
 
         grid = self.grid
         acq = build_ring_acquisition(grid, self.acq_config, x_elem=self.ds.x_circ,
                                      y_elem=self.ds.y_circ)
-        data = build_fwi_data(acq, self.ds.rec_data, self.ds.f, device=self.device)
+        data = build_fwi_data(acq, self.ds.rec_data, self.ds.f)
+        self.check(data.src.is_cuda, "build_fwi_data did not default to the card")
         vel0 = torch.full(grid.shape, FWIConfig().c_init, dtype=torch.float32,
-                          device=self.device)
+                          device=data.src.device)
         return grid, data, vel0
 
-    def slice(self):
+    def run_slice(self, name, factorization, uses, n_iter=N_ITER):
+        """One engine's slice: warm-up, then the timed run between a reset
+        and a reading of the launch counts. ``uses``: the kernels the path
+        must launch; every other kernel must stay at 0."""
         import torch
         from waveforminversionust_tpu_torch.config import FWIConfig, SolverConfig
         from waveforminversionust_tpu_torch.fwi.optimizers import nonlinear_cg
@@ -263,71 +477,180 @@ class Smoke:
                                                         reset_kernel_launch_counts)
 
         grid, data, vel0 = self._setup()
-        solver = SolverConfig(refactor_every=2)
-        fwi = FWIConfig(num_iterations=N_ITER)
+        solver = SolverConfig(refactor_every=2, factorization=factorization)
+        fwi = FWIConfig(num_iterations=n_iter)
         t0 = time.perf_counter()
         nonlinear_cg(vel0, data, grid, solver, fwi)
         torch.cuda.synchronize()
         log(f" warm-up run: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
         reset_kernel_launch_counts()
         t0 = time.perf_counter()
         res = nonlinear_cg(vel0, data, grid, solver, fwi)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        self.counts = kernel_launch_counts()
+        counts = kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
         loss = res.metrics.loss.cpu().numpy()
+        step = res.metrics.step_size.cpu().numpy()
         true_grid = Grid2D.from_arrays(self.ds.x, self.ds.y)
         rmse0 = reconstruction_rmse(vel0.cpu().numpy(), grid, self.ds.c, true_grid)
         rmse = reconstruction_rmse(res.velocity.cpu().numpy(), grid, self.ds.c,
                                    true_grid)
-        self.s_per_iter = elapsed / N_ITER
-        log(f" s/iter {self.s_per_iter:.6f} ({N_ITER} iterations, "
-            f"{elapsed:.4f} s)")
+        log(f" s/iter {elapsed / n_iter:.6f} ({n_iter} iterations, "
+            f"{elapsed:.4f} s); peak device memory {peak / 2**20:.1f} MiB")
         log(f" loss {loss.tolist()}")
         log(f" rmse start {rmse0:.4f} m/s end {rmse:.4f} m/s")
-        log(f" kernel launches in the timed run: {self.counts}")
+        log(f" kernel launches in the timed run: {counts}")
         # Where the time goes: each wrapper's calls (launches over its
         # launches per call) times its phase-2 ms per call at these shapes
-        # (the sweep's and the stencil's mean of forward and adjoint).
-        est = {name: n / self.per_call[name] * self.kernels[name]["ms"] / 1e3
-               for name, n in self.counts.items()
-               if self.per_call.get(name) and name in self.kernels}
+        # (the sweeps' and the stencil's mean of forward and adjoint).
+        est = {k: n / self.per_call[k] * self.kernels[k]["ms"] / 1e3
+               for k, n in counts.items()
+               if n and self.per_call.get(k) and k in self.kernels}
         if est:
             log(f" kernel seconds estimated from counts x phase-2 ms: "
                 f"{ {k: round(v, 4) for k, v in est.items()} }, "
                 f"rest {elapsed - sum(est.values()):.4f} s of {elapsed:.4f} s")
-        self.slice_numbers = dict(s_per_iter=self.s_per_iter, rmse_start=rmse0,
-                                  rmse_end=rmse, loss=loss.tolist(),
-                                  launches=self.counts)
+        self.slices[name] = dict(
+            factorization=factorization, s_per_iter=elapsed / n_iter,
+            iterations=n_iter, rmse_start=rmse0, rmse_end=rmse,
+            loss=loss.tolist(), step=step.tolist(), launches=counts,
+            peak_memory_mib=peak / 2**20, velocity=res.velocity)
+        for k, n in counts.items():
+            self.launches[k] += n
         self.check(np.all(np.isfinite(loss)) and loss[-1] < loss[0],
                    f"loss not finite or not decreasing: {loss}")
         self.check(rmse < rmse0, f"rmse {rmse} not below the start {rmse0}")
-        self.check(all(v > 0 for v in self.counts.values()),
-                   f"a kernel was not launched on the main path: {self.counts}")
+        self.check(all(counts[k] > 0 for k in uses),
+                   f"a kernel of this path was not launched: {counts}")
+        self.check(all(n == 0 for k, n in counts.items() if k not in uses),
+                   f"a kernel of another path was launched: {counts}")
+
+    def slice(self):
+        self.run_slice("slice", "auto", ("factor", "sweep", "stencil"))
+
+    def hold(self, what, bounds, loss, loss_ref, step, step_ref, vel, vel_ref):
+        """Hold one trajectory to another within ``bounds``; returns the
+        failures."""
+        import torch
+        loss, loss_ref = np.asarray(loss), np.asarray(loss_ref)
+        step, step_ref = np.asarray(step), np.asarray(step_ref)
+        dl = float(np.max(np.abs(loss - loss_ref) / np.abs(loss_ref)))
+        ds = float(np.max(np.abs(step - step_ref) / np.abs(step_ref)))
+        dv = float(torch.max(torch.abs(vel - vel_ref)))
+        atol = (bounds["vel_atol"] if bounds["vel_frac"] is None
+                else bounds["vel_frac"] * float(torch.max(torch.abs(vel_ref))))
+        log(f" {what}: max rel loss difference {dl:.3e} (held to "
+            f"{bounds['loss']:.0e}), step {ds:.3e} ({bounds['step']:.0e}), "
+            f"max |velocity difference| {dv:.4e} m/s ({atol:.3f})")
+        failed = []
+        if not dl <= bounds["loss"]:
+            failed.append(f"{what}: loss differs by {dl:.3e}")
+        if not ds <= bounds["step"]:
+            failed.append(f"{what}: step differs by {ds:.3e}")
+        if not dv <= atol:
+            failed.append(f"{what}: velocity differs by {dv} m/s > {atol}")
+        return failed
+
+    def against_thomas(self, name, bounds, first_loss_rtol=None):
+        """Hold an engine's timed trajectory to the block-Thomas slice's."""
+        if "slice" not in self.slices:
+            log(" no block-Thomas slice in this run: trajectory not compared")
+            return
+        ref, got = self.slices["slice"], self.slices[name]
+        failed = self.hold(f"{name} vs the block-Thomas slice", bounds,
+                           got["loss"], ref["loss"], got["step"], ref["step"],
+                           got["velocity"], ref["velocity"])
+        if first_loss_rtol is not None:
+            l0, r0 = got["loss"][0], ref["loss"][0]
+            if not abs(l0 - r0) <= first_loss_rtol * abs(r0):
+                failed.append(f"first loss {l0} vs {r0} beyond rtol "
+                              f"{first_loss_rtol}")
+        self.check(not failed, f"{failed}")
+
+    def slice_twisted(self):
+        self.run_slice("slice_twisted", "twisted",
+                       ("twisted_factor", "twisted_sweep", "stencil"))
+        self.against_thomas("slice_twisted", GOLDEN)
+
+    def slice_cr(self):
+        # Memory, reckoned before the run: a level keeps five block arrays,
+        # about 750 blocks of 301^2 complex64 at level 0 and as many again
+        # over the deeper levels, ~1.1 GB a factor; the frozen-factor CG
+        # holds one, the new one beside it while it is built.
+        self.run_slice("slice_cr", "cr", ("batched_inv", "stencil"))
+        self.against_thomas("slice_cr", CR_BOUNDS, first_loss_rtol=1e-3)
 
     # -- phase 5 --------------------------------------------------------
     def parity(self):
-        import torch
         from waveforminversionust_tpu_torch.config import FWIConfig, SolverConfig
         from waveforminversionust_tpu_torch.fwi.optimizers import nonlinear_cg
 
         grid, data, vel0 = self._setup()
         fwi = FWIConfig(num_iterations=2)
-        kern = nonlinear_cg(vel0, data, grid, SolverConfig(refactor_every=2), fwi)
-        plain = nonlinear_cg(vel0, data, grid,
-                             SolverConfig(refactor_every=2, factorization="thomas",
-                                          fused_apply="off"), fwi)
-        lk, lp = kern.metrics.loss.cpu().numpy(), plain.metrics.loss.cpu().numpy()
-        sk = kern.metrics.step_size.cpu().numpy()
-        sp = plain.metrics.step_size.cpu().numpy()
-        dv = float(torch.max(torch.abs(kern.velocity - plain.velocity)))
-        log(f" loss kernel {lk.tolist()} plain {lp.tolist()}")
-        log(f" step kernel {sk.tolist()} plain {sp.tolist()}")
-        log(f" max |velocity difference| {dv:.4e} m/s")
-        self.check(np.allclose(lk, lp, rtol=1e-2, atol=0)
-                   and np.allclose(sk, sp, rtol=1e-2, atol=0),
-                   "loss/step disagree beyond rtol 1e-2")
-        self.check(dv <= 0.5, f"velocity differs by {dv} m/s > 0.5")
+        failed = []
+        for engine, plain_mode, bounds in (("auto", "thomas", GOLDEN),
+                                           ("twisted", "twisted", GOLDEN),
+                                           ("cr", "cr", CR_BOUNDS)):
+            kern = nonlinear_cg(vel0, data, grid,
+                                SolverConfig(refactor_every=2,
+                                             factorization=engine), fwi)
+            with plain_engines():
+                plain = nonlinear_cg(
+                    vel0, data, grid,
+                    SolverConfig(refactor_every=2, factorization=plain_mode,
+                                 fused_apply="off"), fwi)
+            lk, lp = kern.metrics.loss.cpu().numpy(), plain.metrics.loss.cpu().numpy()
+            sk = kern.metrics.step_size.cpu().numpy()
+            sp = plain.metrics.step_size.cpu().numpy()
+            log(f" {engine}: loss kernel {lk.tolist()} plain {lp.tolist()}")
+            log(f" {engine}: step kernel {sk.tolist()} plain {sp.tolist()}")
+            failed += self.hold(f"{engine}, kernel path vs plain path", bounds,
+                                lk, lp, sk, sp, kern.velocity, plain.velocity)
+        self.check(not failed, f"parity failed: {failed}")
+
+    # -- phase 6 --------------------------------------------------------
+    def profile(self):
+        """torch.profiler over 2 iterations (one factored, one stale) of
+        each engine: device time by kernel name, and the idle share."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from waveforminversionust_tpu_torch.config import FWIConfig, SolverConfig
+        from waveforminversionust_tpu_torch.fwi.optimizers import nonlinear_cg
+
+        grid, data, vel0 = self._setup()
+        fwi = FWIConfig(num_iterations=2)
+        for engine in ("auto", "twisted", "cr"):
+            solver = SolverConfig(refactor_every=2, factorization=engine)
+            nonlinear_cg(vel0, data, grid, solver, fwi)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nonlinear_cg(vel0, data, grid, solver, fwi)
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                nonlinear_cg(vel0, data, grid, solver, fwi)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            # device-side events only: an aten op's row repeats the time of
+            # the kernels it launched
+            rows = [(e.key, e.count,
+                     getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+            busy = sum(r[2] for r in rows) / 1e6
+            log(f" profile {engine}: 2 iterations, {wall:.4f} s profiled wall "
+                f"({plain_wall:.4f} s unprofiled), device busy {busy:.4f} s, "
+                f"idle share {max(0.0, 1 - busy / wall):.3f}")
+            for key, count, us in rows[:14]:
+                log(f"   {us / 1e3:10.3f} ms {us / 1e6 / busy:6.1%} "
+                    f"x{count:<6d} {key[:90]}")
 
 
 def nvidia_smi_line() -> str:
@@ -337,10 +660,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
+SLICES = ("slice", "slice_twisted", "slice_cr")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,data,slice,parity",
-                    help="comma-separated subset of kernels,data,slice,parity")
+    ap.add_argument("--phases",
+                    default="kernels,data,slice,slice_twisted,slice_cr,parity",
+                    help="comma-separated subset of kernels,data,slice,"
+                         "slice_twisted,slice_cr,parity,profile")
     args = ap.parse_args(argv)
 
     import torch
@@ -370,27 +698,29 @@ def main(argv=None) -> int:
         phases = args.phases.split(",")
         if "kernels" in phases:
             smoke.phase("kernels", smoke.kernels_vs_plain)
-        if {"data", "slice", "parity"} & set(phases):
+        if set(phases) - {"kernels"}:
             smoke.phase("data", smoke.data)
-        if "slice" in phases and "data" not in smoke.failures:
-            smoke.phase("slice", smoke.slice)
-        if "parity" in phases and "data" not in smoke.failures:
-            smoke.phase("parity", smoke.parity)
+        for name in SLICES + ("parity", "profile"):
+            if name in phases and "data" not in smoke.failures:
+                smoke.phase(name, getattr(smoke, name))
 
-    counts = getattr(smoke, "counts", {})
     rows = []
     for name, meta in KERNELS.items():
         k = smoke.kernels.get(name, {})
         rows.append(dict(name=name, route="cuda", source=meta["source"],
                          replaces=meta["replaces"],
-                         launches=counts.get(name, 0),
+                         launches=smoke.launches[name],
                          max_abs_err=k.get("max_abs_err"), ms=k.get("ms"),
-                         plain_ms=k.get("plain_ms")))
+                         plain_ms=k.get("plain_ms"),
+                         bound_ms=k.get("bound_ms"),
+                         bound_by=k.get("bound_by"),
+                         library_ms=k.get("library_ms")))
     if smoke.failures:
         log(f"FAILED phases: {smoke.failures}")
         return 1
-    if hasattr(smoke, "slice_numbers"):
-        log(f"slice: {json.dumps(smoke.slice_numbers)}")
+    for name, numbers in smoke.slices.items():
+        numbers.pop("velocity")
+        log(f"{name}: {json.dumps(numbers)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -255,7 +255,8 @@ def test_synthesize_matches(tiny_ring):
     port = synthesize_ring_dataset(vel, Grid2D.centered(16e-3, 0.8e-3),
                                    AcquisitionConfig(**TINY_ACQ), f=TINY_F,
                                    seed=3,
-                                   solver=SolverConfig(pml=PMLConfig(**TINY_PML)))
+                                   solver=SolverConfig(pml=PMLConfig(**TINY_PML)),
+                                   device="cpu")
     for name in ("x", "y", "c", "x_circ", "y_circ"):
         np.testing.assert_array_equal(getattr(port, name), getattr(ds, name))
     rel = (np.linalg.norm(port.rec_data - ds.rec_data)
@@ -285,7 +286,7 @@ def test_nonlinear_cg_frozen_factor_matches(tiny_ring):
                                ds.rec_data)
     acq = build_ring_acquisition(grid, AcquisitionConfig(**TINY_ACQ),
                                  x_elem=tds.x_circ, y_elem=tds.y_circ)
-    data = tobj.build_fwi_data(acq, tds.rec_data, TINY_F)
+    data = tobj.build_fwi_data(acq, tds.rec_data, TINY_F, device="cpu")
     port = topt.nonlinear_cg(torch.full(grid.shape, 1500.0), data, grid,
                              SolverConfig(pml=PMLConfig(**TINY_PML),
                                           refactor_every=2),
@@ -326,7 +327,8 @@ def test_golden_fixture_reproduced():
     fwi = FWIConfig(num_iterations=gen.FWI.num_iterations, c_init=gen.FWI.c_init)
     grid = Grid2D.centered(44e-3, 1.0e-3)
     assert grid.shape == gen.COARSE.shape
-    res = invert_dataset(ds, grid=grid, acquisition=acq, solver=solver, fwi=fwi)
+    res = invert_dataset(ds, grid=grid, acquisition=acq, solver=solver, fwi=fwi,
+                         device="cpu")
     np.testing.assert_allclose(res.metrics["loss"], golden["loss"], rtol=1e-2)
     np.testing.assert_allclose(res.metrics["step_size"], golden["step"],
                                rtol=1e-2)

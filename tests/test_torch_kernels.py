@@ -16,10 +16,13 @@ from waveforminversionust_tpu_torch.config import (PMLConfig, SolverConfig,
 from waveforminversionust_tpu_torch.models.grid import Grid2D
 from waveforminversionust_tpu_torch.models.phantom import smooth_blob_phantom
 from waveforminversionust_tpu_torch.ops import (_build, apply, banded,
-                                                kernel_factor,
+                                                batched_inv, kernel_factor,
+                                                kernel_inv,
                                                 kernel_launch_counts,
                                                 kernel_stencil, kernel_sweep,
-                                                reset_kernel_launch_counts)
+                                                kernel_twisted,
+                                                reset_kernel_launch_counts,
+                                                twisted)
 from waveforminversionust_tpu_torch.ops import solve as tsolve
 from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
 
@@ -43,20 +46,32 @@ def _rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
+NO_LAUNCHES = {"factor": 0, "sweep": 0, "stencil": 0, "twisted_factor": 0,
+               "twisted_sweep": 0, "batched_inv": 0}
+
+
 def test_cpu_wrappers_run_the_plain_versions():
-    """On CPU tensors the three wrappers return exactly their plain
-    versions' results and count no launch."""
+    """On CPU tensors every wrapper returns exactly its plain version's
+    result and counts no launch."""
     coeffs = _planes()
     b = _fields(0, (2,) + tuple(coeffs.shape[1:]))
     reset_kernel_launch_counts()
     fac = kernel_factor.banded_factor_kernel(coeffs)
     assert torch.equal(fac.g, banded.banded_factor(coeffs).g)
+    tfac = kernel_twisted.twisted_factor_kernel(coeffs, m=5)
+    assert tfac.m == 5
+    assert torch.equal(tfac.g, twisted.twisted_factor(coeffs, m=5).g)
     for adjoint in (False, True):
         assert torch.equal(kernel_sweep.banded_solve_kernel(fac, b, adjoint),
                            banded.banded_solve(fac, b, adjoint))
+        assert torch.equal(kernel_twisted.twisted_solve_kernel(tfac, b, adjoint),
+                           twisted.twisted_solve(tfac, b, adjoint))
     assert torch.equal(kernel_stencil.h_apply_kernel(coeffs, b),
                        apply.h_apply(coeffs, b))
-    assert kernel_launch_counts() == {"factor": 0, "sweep": 0, "stencil": 0}
+    blocks = _fields(5, (3, 8, 8)) + 4 * torch.eye(8)
+    assert torch.equal(kernel_inv.batched_small_inv_kernel(blocks),
+                       batched_inv._batched_pivot_inv(blocks))
+    assert kernel_launch_counts() == NO_LAUNCHES
 
 
 @pytest.mark.parametrize("factorization,fused_apply",
@@ -93,8 +108,9 @@ def test_solver_config_dispatch(monkeypatch, factorization, fused_apply):
 
 
 @pytest.mark.parametrize("cfg", [SolverConfig(method=SolverMethod.GMRES),
-                                 SolverConfig(factorization="twisted"),
-                                 SolverConfig(factorization="cr"),
+                                 SolverConfig(method=SolverMethod.BORN),
+                                 SolverConfig(factorization="spike",
+                                              refactor_every=2),
                                  SolverConfig(factorization="spike")])
 def test_later_slices_raise(cfg):
     grid = Grid2D.centered(4e-3, 0.8e-3)
@@ -108,15 +124,21 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
     new key, so a stale library is never loaded."""
     key = _build._key()
     assert len(key) == 16 and key == _build._key()
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert 'extern "C"' in src
         (tmp_path / f"{name}.cu").write_text(src)
+    headers = sorted(_build.CSRC.glob("*.cuh"))
+    for header in headers:
+        (tmp_path / header.name).write_text(header.read_text())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _build._key() == key
-    edited = tmp_path / "sweep.cu"
-    edited.write_text(edited.read_text() + "\n// edited\n")
-    assert _build._key() != key
+    # an edited source or an edited shared header gets a new key
+    for edited in (tmp_path / "sweep.cu", tmp_path / headers[0].name):
+        before = _build._key()
+        edited.write_text(edited.read_text() + "\n// edited\n")
+        assert _build._key() != before
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -178,4 +200,93 @@ def test_launch_counts_are_kernel_launches(cuda):
     kernel_sweep.banded_solve_kernel(fac, b, True)
     kernel_stencil.h_apply_kernel(coeffs, b)
     torch.cuda.synchronize()
-    assert kernel_launch_counts() == {"factor": 4 * ny, "sweep": 2, "stencil": 1}
+    assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=4 * ny, sweep=2,
+                                          stencil=1)
+
+
+def _twisted_middles(ny):
+    """The default middle row, both extremes and an off-centre one."""
+    return [None, 1, ny - 2, ny // 3]
+
+
+@pytest.mark.cuda
+def test_twisted_factor_kernel_matches_plain(cuda):
+    """K4a on 61x61 vs the plain twisted factor in complex128, for the
+    default middle row and for m past the centre (which the TPU kernel
+    refuses and this one takes): rel < 5e-6 (K1's bound). Rows above the
+    middle are block-Thomas's G: held against K1's kernel to 1e-5."""
+    coeffs = _planes(24e-3, cuda)
+    ny = coeffs.shape[1]
+    g1 = kernel_factor.banded_factor_kernel(coeffs).g
+    for m in _twisted_middles(ny):
+        fac = kernel_twisted.twisted_factor_kernel(coeffs, m)
+        ref = twisted.twisted_factor(coeffs.to(torch.complex128), m)
+        torch.cuda.synchronize()
+        assert fac.m == ref.m
+        assert _rel(fac.g.to(torch.complex128), ref.g) < 5e-6, m
+        assert _rel(fac.g[:fac.m], g1[:fac.m]) < 1e-5, m
+    for bad in (0, ny - 1):
+        with pytest.raises(ValueError, match="out of range"):
+            kernel_twisted.twisted_factor_kernel(coeffs, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_twisted_sweep_kernel_matches_plain(cuda, adjoint):
+    """K4b vs the plain twisted solve through the same factor, 9 RHS (a
+    ragged last group), every middle row of the factor test: rel < 1e-5;
+    true residual through the plain apply < 2e-5."""
+    coeffs = _planes(24e-3, cuda)
+    b = _fields(6, (9,) + tuple(coeffs.shape[1:]), cuda)
+    op = apply.h_apply_adjoint if adjoint else apply.h_apply
+    for m in _twisted_middles(coeffs.shape[1]):
+        fac = twisted.twisted_factor(coeffs, m)
+        x = kernel_twisted.twisted_solve_kernel(fac, b, adjoint)
+        torch.cuda.synchronize()
+        assert _rel(x, twisted.twisted_solve(fac, b, adjoint)) < 1e-5, m
+        assert _rel(op(coeffs, x), b) < 2e-5, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,b", [(150, 64), (5, 16), (3, 40), (1, 1)])
+def test_batched_inv_kernel_matches_plain(cuda, batch, b):
+    """K5 vs numpy-grade complex128 inverses of a seeded batch with a
+    boosted diagonal: rel < 5e-5 (tests/test_batched_inv.py's bound); and
+    the Dirichlet-scale pivot 1.5625e6 inverted without cancellation."""
+    a = _fields(7, (batch, b, b), cuda) / np.sqrt(b) + 2 * torch.eye(b, device=cuda)
+    out = kernel_inv.batched_small_inv_kernel(a)
+    torch.cuda.synchronize()
+    want = torch.linalg.inv(a.to(torch.complex128))
+    rel = (torch.linalg.norm((out - want).reshape(batch, -1), dim=1)
+           / torch.linalg.norm(want.reshape(batch, -1), dim=1))
+    assert float(rel.max()) < 5e-5
+    assert _rel(out, batched_inv._batched_pivot_inv(a)) < 5e-5
+    d = (1.5625e6 * torch.eye(b, device=cuda)).to(torch.complex64)[None]
+    got = kernel_inv.batched_small_inv_kernel(d)[0]
+    torch.testing.assert_close(got, (torch.eye(b, device=cuda) / 1.5625e6
+                                     ).to(torch.complex64), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factorization", ["twisted", "cr"])
+def test_engine_launch_counts(cuda, factorization):
+    """A solve through each opt-in engine launches its own kernels and
+    none of block-Thomas's: on 31x31 a twisted factorization is 4 launches
+    per step of both chains plus 4 for the middle, a twisted solve 2; a
+    cyclic-reduction factorization one batched pivot inverse per level and
+    root (31 < 64: one panel each)."""
+    coeffs = _planes(12e-3, cuda)
+    ny = coeffs.shape[1]
+    cfg = SolverConfig(factorization=factorization, pml=PMLConfig(l_pml=2.4e-3))
+    b = _fields(8, (3,) + tuple(coeffs.shape[1:]), cuda)
+    reset_kernel_launch_counts()
+    fac = tsolve.factor_operator(coeffs, cfg)
+    x = tsolve.banded_solve_refined(fac, b, cfg, adjoint=False)
+    torch.cuda.synchronize()
+    assert _rel(apply.h_apply(coeffs, x), b) < 1e-4
+    if factorization == "twisted":
+        steps = max(fac.m, ny - 1 - fac.m) + 1
+        want = dict(NO_LAUNCHES, twisted_factor=4 * steps, twisted_sweep=2)
+    else:
+        want = dict(NO_LAUNCHES, batched_inv=len(fac.levels) + 1)
+    assert kernel_launch_counts() == want

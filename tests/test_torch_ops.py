@@ -245,7 +245,7 @@ def test_stale_factor_is_reused_whole(monkeypatch):
     src = _to_t(_random_fields(4, (2,) + tg.shape))
 
     seen = []
-    sweeps = tsolve._sweeps(cfg)
+    sweeps = tsolve._sweeps(stale.factor, cfg)
 
     def spy_sweeps(factor, rhs, adjoint=False):
         seen.append(("sweep", factor.coeffs))
@@ -257,7 +257,7 @@ def test_stale_factor_is_reused_whole(monkeypatch):
         seen.append(("apply", coeffs))
         return make_apply(coeffs, cfg_, adjoint)
 
-    monkeypatch.setattr(tsolve, "_sweeps", lambda cfg_: spy_sweeps)
+    monkeypatch.setattr(tsolve, "_sweeps", lambda factor, cfg_: spy_sweeps)
     monkeypatch.setattr(tsolve, "make_apply", spy_apply)
     for adjoint in (False, True):
         seen.clear()

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of ``waveforminversionust_tpu``: frequency-domain
 full-waveform inversion for ring-array ultrasound tomography on an NVIDIA
-H100, with hand-written CUDA kernels for the block-Thomas factorization,
-its solve sweeps and the 9-point operator apply (``csrc/``).
+H100, with hand-written CUDA kernels for the block-Thomas and twisted
+factorizations, their solve sweeps, the batched pivot inverse of cyclic
+reduction and the 9-point operator apply (``csrc/``). The entry points run
+on the card unless the caller passes ``device="cpu"``.
 
 The JAX package beside it is the reference; this package imports ``torch``
 and never ``jax``. All math is FP32 (complex64). TF32 is off for matrix
@@ -17,6 +19,7 @@ from .config import (AcquisitionConfig, ContinuationConfig,  # noqa: E402
                      FWIConfig, MomentumFormula, PMLConfig, SolverConfig,
                      SolverMethod, StencilConfig, StepSizeFormula)
 from .data.synthesize import RingDataset, synthesize_ring_dataset  # noqa: E402
+from .device import default_device  # noqa: E402
 from .fwi.objective import FWIData, build_fwi_data  # noqa: E402
 from .fwi.optimizers import CGResult, nonlinear_cg  # noqa: E402
 from .fwi.runner import (default_inversion_grid, invert_dataset,  # noqa: E402

@@ -14,7 +14,13 @@ What the port does with each field in this slice:
   hand-written CUDA factor and sweep kernels on CUDA tensors (their plain
   PyTorch versions on CPU tensors); ``"thomas"`` runs the plain PyTorch
   block-Thomas factor and sweeps on any device (the reference's XLA-scan
-  path). ``"twisted"``, ``"cr"`` and ``"spike"`` raise.
+  path). ``"twisted"`` runs the two-sided elimination toward the middle
+  row through the CUDA twisted factor and sweep kernels (plain versions on
+  CPU tensors); ``"cr"`` runs block cyclic reduction, whose pivot-block
+  inverses are the CUDA batched Gauss-Jordan kernel (plain version on CPU
+  tensors) and whose dense products are ``torch.bmm``. A factor of any of
+  the three types serves forward, adjoint and refined solves and the
+  frozen-factor CG. ``"spike"`` raises.
 * ``SolverConfig.fused_apply``: ``"off"`` runs the plain PyTorch 9-point
   apply; every other value runs the CUDA stencil kernel on CUDA tensors.
   One kernel serves the reference's whole-field and y-tiled call sites.

@@ -45,181 +45,11 @@
 // 11.9 ms; kAhead 4 -> 8 slowed the forward one (10.3 -> 11.5 ms: it
 // spills at the 64-register cap of a 1024-thread block).
 
-#include <cuda_runtime.h>
+#include "sweep_gemv.cuh"
 
 namespace {
 
 constexpr int kRhs = 2;
-constexpr int kThreads = 1024;
-constexpr int kRows = 2;
-constexpr int kAhead = 4;
-constexpr int kAheadH = 8;  // rows of G loaded ahead in gemv_h
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-// conj(a) * b
-__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-// Threads per column slice of gemv_h (warp aligned) and the slice count.
-__host__ __device__ inline int slice_width(int nx) {
-  const int w = (nx + 31) / 32 * 32;
-  return w < kThreads ? w : kThreads;
-}
-__host__ __device__ inline int num_slices(int nx) {
-  return kThreads / slice_width(nx);
-}
-
-// dst[r][i] = sum_j G[i][j] src[r][j]; a warp per kRows output rows.
-__device__ void gemv_n(const float2* __restrict__ g, const float2* src,
-                       float2* dst, int nx) {
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int row0 = (threadIdx.x >> 5) * kRows; row0 < nx;
-       row0 += nwarps * kRows) {
-    float ar[kRows][kRhs], ai[kRows][kRhs];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r) ar[q][r] = ai[q][r] = 0.f;
-    for (int j0 = lane; j0 < nx; j0 += 32 * kAhead) {
-      float2 gv[kRows][kAhead];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q)
-#pragma unroll
-        for (int u = 0; u < kAhead; ++u) {
-          const int j = j0 + 32 * u;
-          gv[q][u] = (row0 + q < nx && j < nx)
-                         ? __ldg(g + (long long)(row0 + q) * nx + j)
-                         : make_float2(0.f, 0.f);
-        }
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        const int j = j0 + 32 * u;
-        if (j < nx) {
-#pragma unroll
-          for (int r = 0; r < kRhs; ++r) {
-            const float2 v = src[r * nx + j];
-#pragma unroll
-            for (int q = 0; q < kRows; ++q) {
-              ar[q][r] += gv[q][u].x * v.x - gv[q][u].y * v.y;
-              ai[q][r] += gv[q][u].x * v.y + gv[q][u].y * v.x;
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r)
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          ar[q][r] += __shfl_xor_sync(0xffffffffu, ar[q][r], o);
-          ai[q][r] += __shfl_xor_sync(0xffffffffu, ai[q][r], o);
-        }
-    // lane q * kRhs + r writes dst[r][row0 + q]
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r)
-        if (lane == q * kRhs + r && row0 + q < nx)
-          dst[r * nx + row0 + q] = make_float2(ar[q][r], ai[q][r]);
-  }
-}
-
-// dst[r][c] = sum_j conj(G[j][c]) src[r][j]; part holds num_slices(nx) *
-// kRhs * nx partial sums. Starts and ends with the block synchronised.
-__device__ void gemv_h(const float2* __restrict__ g, const float2* src,
-                       float2* dst, float2* part, int nx) {
-  const int width = slice_width(nx), nslices = num_slices(nx);
-  const int s = threadIdx.x / width, c0 = threadIdx.x - s * width;
-  const int chunk = (nx + nslices - 1) / nslices;
-  const int j_lo = s * chunk, j_hi = min(nx, j_lo + chunk);
-  if (s < nslices) {
-    for (int col = c0; col < nx; col += width) {
-      float ar[kRhs], ai[kRhs];
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r) ar[r] = ai[r] = 0.f;
-      for (int j0 = j_lo; j0 < j_hi; j0 += kAheadH) {
-        float2 gv[kAheadH];
-#pragma unroll
-        for (int u = 0; u < kAheadH; ++u)
-          gv[u] = (j0 + u < j_hi) ? __ldg(g + (long long)(j0 + u) * nx + col)
-                                  : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int u = 0; u < kAheadH; ++u) {
-          if (j0 + u < j_hi) {
-#pragma unroll
-            for (int r = 0; r < kRhs; ++r) {
-              const float2 v = src[r * nx + j0 + u];
-              ar[r] += gv[u].x * v.x + gv[u].y * v.y;
-              ai[r] += gv[u].x * v.y - gv[u].y * v.x;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r)
-        part[(s * kRhs + r) * nx + col] = make_float2(ar[r], ai[r]);
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kRhs * nx; e += blockDim.x) {
-    float2 acc = part[e];
-    for (int t = 1; t < nslices; ++t) acc = cadd(acc, part[t * kRhs * nx + e]);
-    dst[e] = acc;
-  }
-  __syncthreads();
-}
-
-struct Planes {
-  const float2* c;
-  long long plane;  // ny * nx
-  int nx;
-  __device__ const float2* at(int k, int row) const {
-    return c + k * plane + (long long)row * nx;
-  }
-};
-
-// (T v)[j] = m[j] v[j] + s[j] v[j-1] + p[j] v[j+1]
-__device__ __forceinline__ float2 tri(const float2* m, const float2* s,
-                                      const float2* p, const float2* v,
-                                      int j, int nx) {
-  float2 t = cmul(__ldg(m + j), v[j]);
-  if (j > 0) t = cadd(t, cmul(__ldg(s + j), v[j - 1]));
-  if (j < nx - 1) t = cadd(t, cmul(__ldg(p + j), v[j + 1]));
-  return t;
-}
-
-// (T^H v)[j] = conj(m[j]) v[j] + conj(s[j+1]) v[j+1] + conj(p[j-1]) v[j-1]
-__device__ __forceinline__ float2 tri_h(const float2* m, const float2* s,
-                                        const float2* p, const float2* v,
-                                        int j, int nx) {
-  float2 t = cmulc(__ldg(m + j), v[j]);
-  if (j < nx - 1) t = cadd(t, cmulc(__ldg(s + j + 1), v[j + 1]));
-  if (j > 0) t = cadd(t, cmulc(__ldg(p + j - 1), v[j - 1]));
-  return t;
-}
-
-__device__ __forceinline__ long long vidx(int r, int row, int j, int ny,
-                                          int nx) {
-  return ((long long)r * ny + row) * nx + j;
-}
-
-// Shared memory of a pass: the running vector cv, a temporary tv (kRhs x nx
-// each) and gemv_h's partial sums.
-__host__ __device__ inline size_t smem_floats2(int nx) {
-  return (size_t)(2 + num_slices(nx)) * kRhs * nx;
-}
 
 // Pass 1: forward elimination (z) or, for the adjoint, the w recurrence.
 template <bool kAdjoint>
@@ -244,7 +74,7 @@ sweep_pass1(const float2* __restrict__ g, const float2* __restrict__ coeffs,
     if (kAdjoint) tv[e] = v; else cv[e] = v;
   }
   __syncthreads();
-  if (kAdjoint) gemv_h(g, tv, cv, part, nx);  // w_0 = G_0^H b_0
+  if (kAdjoint) gemv_h<kRhs>(g, tv, cv, part, nx);  // w_0 = G_0^H b_0
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int r = e / nx, j = e - r * nx;
     if (r0 + r < batch) z[vidx(r0 + r, 0, j, ny, nx)] = cv[e];
@@ -253,7 +83,7 @@ sweep_pass1(const float2* __restrict__ g, const float2* __restrict__ coeffs,
   for (int i = 1; i < ny; ++i) {
     if (!kAdjoint) {
       // z_i = b_i - tri(L_i) (G_{i-1} z_{i-1})
-      gemv_n(g + (i - 1) * gstride, cv, tv, nx);
+      gemv_n<kRhs>(g + (i - 1) * gstride, cv, tv, nx);
       __syncthreads();
       const float2 *lm = P.at(3, i), *ls = P.at(5, i), *lp = P.at(6, i);
       for (int e = threadIdx.x; e < n; e += blockDim.x) {
@@ -276,7 +106,7 @@ sweep_pass1(const float2* __restrict__ g, const float2* __restrict__ coeffs,
         tv[e] = csub(bv, tri_h(um, us, up, cv + r * nx, j, nx));
       }
       __syncthreads();
-      gemv_h(g + i * gstride, tv, cv, part, nx);
+      gemv_h<kRhs>(g + i * gstride, tv, cv, part, nx);
       for (int e = threadIdx.x; e < n; e += blockDim.x) {
         const int r = e / nx, j = e - r * nx;
         if (r0 + r < batch) z[vidx(r0 + r, i, j, ny, nx)] = cv[e];
@@ -309,7 +139,7 @@ sweep_pass2(const float2* __restrict__ g, const float2* __restrict__ coeffs,
   }
   __syncthreads();
   if (!kAdjoint) {
-    gemv_n(g + e_row * gstride, tv, cv, nx);  // x_e = G_e z_e
+    gemv_n<kRhs>(g + e_row * gstride, tv, cv, nx);  // x_e = G_e z_e
     __syncthreads();
   }
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
@@ -329,7 +159,7 @@ sweep_pass2(const float2* __restrict__ g, const float2* __restrict__ coeffs,
         tv[e] = csub(zv, tri(um, us, up, cv + r * nx, j, nx));
       }
       __syncthreads();
-      gemv_n(g + i * gstride, tv, cv, nx);
+      gemv_n<kRhs>(g + i * gstride, tv, cv, nx);
       __syncthreads();
       for (int e = threadIdx.x; e < n; e += blockDim.x) {
         const int r = e / nx, j = e - r * nx;
@@ -344,7 +174,7 @@ sweep_pass2(const float2* __restrict__ g, const float2* __restrict__ coeffs,
         tv[e] = tri_h(lm, ls, lp, cv + r * nx, j, nx);
       }
       __syncthreads();
-      gemv_h(g + i * gstride, tv, cv, part, nx);
+      gemv_h<kRhs>(g + i * gstride, tv, cv, part, nx);
       for (int e = threadIdx.x; e < n; e += blockDim.x) {
         const int r = e / nx, j = e - r * nx;
         const float2 zv = (r0 + r < batch) ? z[vidx(r0 + r, i, j, ny, nx)]
@@ -362,7 +192,7 @@ template <bool kAdjoint>
 int launch(const float2* g, const float2* coeffs, const float2* b, float2* z,
            float2* x, int batch, int ny, int nx, int* launched,
            cudaStream_t stream) {
-  const size_t smem = smem_floats2(nx) * sizeof(float2);
+  const size_t smem = smem_floats2(nx, kRhs, 2) * sizeof(float2);
   const int blocks = (batch + kRhs - 1) / kRhs;
   cudaError_t err;
   if (smem > 48 * 1024) {

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import AcquisitionConfig, SolverConfig
+from ..device import default_device
 from ..models.acquisition import build_ring_acquisition
 from ..models.grid import Grid2D
 from ..ops.solve import solve_helmholtz
@@ -51,9 +52,11 @@ def synthesize_ring_dataset(vel, grid: Grid2D,
                             device=None) -> RingDataset:
     """Simulate a full ring acquisition over the (ny, nx) speed map ``vel``
     on ``grid``; the solve runs on ``device`` (default: ``vel``'s device if
-    it is a tensor, else the CPU)."""
+    it is a tensor, else the card, which raises when there is none; pass
+    ``"cpu"`` for the plain PyTorch path)."""
     if device is None:
-        device = vel.device if isinstance(vel, torch.Tensor) else "cpu"
+        device = (vel.device if isinstance(vel, torch.Tensor)
+                  else default_device())
     acq = build_ring_acquisition(grid, dataclass_replace_tx_all(acquisition),
                                  x_elem=x_elem, y_elem=y_elem)
     rng = np.random.default_rng(seed)

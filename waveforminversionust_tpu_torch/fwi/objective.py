@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import default_device
 from ..models.acquisition import RingAcquisition
 
 
@@ -41,8 +42,11 @@ def build_fwi_data(acq: RingAcquisition, rec_data: np.ndarray, f,
                    device=None) -> FWIData:
     """FWIData from an acquisition and a recorded (tx, rx) data matrix
     (all elements, or already down-selected to ``acq.tx_include``), on
-    ``device``. ``split`` is accepted for signature parity: the port keeps
-    complex64 everywhere."""
+    ``device`` (default: the card, which raises when there is none; pass
+    ``"cpu"`` for the CPU). ``split`` is accepted for signature parity: the
+    port keeps complex64 everywhere."""
+    if device is None:
+        device = default_device()
     rec_data = np.asarray(rec_data)
     if rec_data.shape[0] == acq.num_tx:
         rec_rows = rec_data

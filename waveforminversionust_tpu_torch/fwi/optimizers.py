@@ -12,7 +12,8 @@ Per iteration (nonlinearcg.py:71-169, FrequencyDomainFWI.m:76-189):
   7. step size (3 line-search formulas, or BB) and the slowness update
 All three solves share one factorization; with ``refactor_every = K > 1``
 the factorization runs only when it % K == 0 (and at the first iteration of
-each call) and the whole stale factor is reused in between.
+each call) and the whole stale factor, of whichever direct engine built it
+(block-Thomas, twisted or cyclic reduction), is reused in between.
 """
 
 from __future__ import annotations

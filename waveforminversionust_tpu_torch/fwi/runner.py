@@ -15,6 +15,7 @@ import torch
 
 from ..config import (AcquisitionConfig, ContinuationConfig, FWIConfig,
                       SolverConfig)
+from ..device import default_device
 from ..models.acquisition import build_ring_acquisition
 from ..models.grid import Grid2D
 from .objective import build_fwi_data
@@ -66,7 +67,9 @@ def invert_dataset(dataset, grid: Grid2D | None = None,
                    receiver_calibration: bool = False,
                    device=None) -> InversionResult:
     """Invert a RingDataset with nonlinear CG in one stage at ``dataset.f``
-    for ``fwi.num_iterations`` iterations, on ``device`` (default CPU).
+    for ``fwi.num_iterations`` iterations, on ``device`` (default: the
+    card, :func:`..device.default_device`, which raises when there is
+    none; pass ``"cpu"`` for the plain PyTorch path).
     ``callback(stage, frequency, velocity, metrics)`` fires once at the
     end of the stage."""
     later = {
@@ -83,6 +86,8 @@ def invert_dataset(dataset, grid: Grid2D | None = None,
         raise NotImplementedError(
             f"{', '.join(missing)}: ported in a later slice (ROADMAP.md A); "
             f"this slice runs single-stage nonlinear CG")
+    if device is None:
+        device = default_device()
     grid = grid or default_inversion_grid()
     if attenuation is not None and np.ndim(attenuation) == 0:
         attenuation = (None if float(attenuation) == 0.0 else

@@ -14,6 +14,8 @@ import torch
 
 from .data.synthesize import RingDataset
 from .ops.banded import BandedFactor
+from .ops.cyclic import CRFactor, CRLevel
+from .ops.twisted import TwistedFactor
 
 
 def complex_tensor(re: np.ndarray, im: np.ndarray | None = None,
@@ -45,3 +47,46 @@ def banded_factor(g_re: np.ndarray, g_im: np.ndarray, coeffs_re: np.ndarray,
     (ny, nx, nx) and coefficient planes (9, ny, nx)."""
     return BandedFactor(g=complex_tensor(g_re, g_im, device),
                         coeffs=complex_tensor(coeffs_re, coeffs_im, device))
+
+
+def twisted_factor(coeffs_re: np.ndarray, coeffs_im: np.ndarray, m: int,
+                   g=None, g_down=None, g_up=None, device=None) -> TwistedFactor:
+    """The port's TwistedFactor from the planes of a ``TwistedFactorCpx``,
+    in either of its layouts (each argument an (re, im) pair of arrays):
+
+    * ``g``: the row-ordered (ny, nx, nx) inverses of the plain factor;
+    * ``g_down`` / ``g_up``: the fused kernel's block-step layout,
+      (nsteps + 1, nxp, nxp) each with nsteps = ny - 1 - m:
+      ``g_down[i] = G_i`` for i < m, ``g_down[nsteps]`` the middle inverse,
+      ``g_up[i] = B_{ny-1-i}`` for i < nsteps, padded to nxp columns and
+      cropped here.
+    """
+    coeffs = complex_tensor(coeffs_re, coeffs_im, device)
+    ny, nx = coeffs.shape[1], coeffs.shape[2]
+    if g is not None:
+        rows = complex_tensor(g[0], g[1], device)
+    else:
+        down = complex_tensor(g_down[0], g_down[1])[:, :nx, :nx]
+        up = complex_tensor(g_up[0], g_up[1])[:, :nx, :nx]
+        nsteps = down.shape[0] - 1
+        if nsteps != ny - 1 - m:
+            raise ValueError(f"g_down holds {nsteps} steps, ny - 1 - m = "
+                             f"{ny - 1 - m}")
+        rows = torch.cat([down[:m], down[nsteps:nsteps + 1],
+                          torch.flip(up[:nsteps], dims=(0,))]).to(device)
+    if rows.shape != (ny, nx, nx):
+        raise ValueError(f"g shape {tuple(rows.shape)} != {(ny, nx, nx)}")
+    return TwistedFactor(g=rows.contiguous(), coeffs=coeffs, m=int(m))
+
+
+def cr_factor(levels, dinv_root, coeffs_re: np.ndarray,
+              coeffs_im: np.ndarray, device=None) -> CRFactor:
+    """The port's CRFactor from a ``CRFactor`` of the JAX package:
+    ``levels`` a sequence of levels, each the five (re, im) pairs of a
+    ``CRLevel`` in field order (dinv, lt, ut, dl, du); ``dinv_root`` an
+    (re, im) pair."""
+    return CRFactor(
+        levels=tuple(CRLevel(*(complex_tensor(re, im, device)
+                               for re, im in level)) for level in levels),
+        dinv_root=complex_tensor(dinv_root[0], dinv_root[1], device),
+        coeffs=complex_tensor(coeffs_re, coeffs_im, device))

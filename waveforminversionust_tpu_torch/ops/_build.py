@@ -1,9 +1,10 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``, sharing
+device code through ``csrc/*.cuh``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes`. The build runs
 on first use, one ``nvcc`` per source, all started together, into a
-directory keyed by a hash of the sources and flags:
+directory keyed by a hash of the sources, headers and flags:
 ``<repo>/build/kernels/<hash>/``.
 Nothing is built when the package is imported, and nothing here runs on a
 CPU-only machine unless a kernel is asked for.
@@ -20,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("factor", "sweep", "stencil")
+SOURCES = ("factor", "sweep", "stencil", "twisted", "inv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +46,10 @@ def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
+    # every source may include every header: an edited header rebuilds all
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

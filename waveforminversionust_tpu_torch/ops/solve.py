@@ -1,5 +1,6 @@
-"""Helmholtz solves through the block-Thomas factor (port of the banded
-subset of ``waveforminversionust_tpu/ops/solve.py``).
+"""Helmholtz solves through a direct factor: block-Thomas, twisted or
+cyclic reduction (port of the banded subset of
+``waveforminversionust_tpu/ops/solve.py``).
 
 Boundary-row bookkeeping, as in the reference: the planes describe the
 balanced operator H_s = D H, D = diag(1/h^2 on the border, 1 inside).
@@ -8,9 +9,13 @@ balanced operator H_s = D H, D = diag(1/h^2 on the border, 1 inside).
 
 Kernel dispatch (see ``config.py``): ``factorization`` "auto"/"pallas" runs
 the CUDA factor and sweep kernels (their plain versions on CPU tensors),
-"thomas" the plain PyTorch block-Thomas everywhere; ``fused_apply`` "off"
-runs the plain apply, anything else the CUDA stencil kernel. No wrapper
-falls back: a CUDA tensor launches the kernel or raises.
+"thomas" the plain PyTorch block-Thomas everywhere, "twisted" the CUDA
+twisted factor and sweep kernels, "cr" cyclic reduction with the CUDA
+batched pivot inverse; ``fused_apply`` "off" runs the plain apply, anything
+else the CUDA stencil kernel. The sweeps follow the type of the factor they
+are handed, not the configuration: the frozen-factor CG carries a factor
+across iterations. No wrapper falls back: a CUDA tensor launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -21,11 +26,14 @@ import torch
 
 from ..config import SolverConfig, SolverMethod
 from ..models.grid import Grid2D
-from . import apply, banded
+from . import apply, banded, cyclic
 from .banded import BandedFactor
+from .cyclic import CRFactor
 from .kernel_factor import banded_factor_kernel
 from .kernel_stencil import h_apply_kernel
 from .kernel_sweep import banded_solve_kernel
+from .kernel_twisted import twisted_factor_kernel, twisted_solve_kernel
+from .twisted import TwistedFactor
 from .stencil import d_map as _d_map
 from .stencil import helmholtz_coefficients
 
@@ -44,7 +52,7 @@ class HelmholtzOperator(NamedTuple):
     f: float
     coeffs: torch.Tensor          # H_s planes (9, ny, nx) complex64
     precond: None                 # GMRES preconditioner (not ported yet)
-    factor: BandedFactor | None
+    factor: BandedFactor | TwistedFactor | CRFactor | None
     d_map: torch.Tensor           # (ny, nx) float32
     attenuation: torch.Tensor | None = None
 
@@ -57,17 +65,18 @@ def _check_method(cfg: SolverConfig):
             f"banded method")
 
 
-def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig) -> BandedFactor:
-    """Block-Thomas factorization per ``cfg.factorization``."""
+def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig):
+    """Direct factorization per ``cfg.factorization``: a
+    :class:`BandedFactor`, :class:`TwistedFactor` or :class:`CRFactor`."""
     mode = cfg.factorization
     if mode in ("auto", "pallas"):
         return banded_factor_kernel(coeffs)
     if mode == "thomas":
         return banded.banded_factor(coeffs)
-    if mode in ("twisted", "cr"):
-        raise NotImplementedError(
-            f"factorization={mode!r} is ported in a later slice (ROADMAP.md "
-            f"A, slice 6)")
+    if mode == "twisted":
+        return twisted_factor_kernel(coeffs)
+    if mode == "cr":
+        return cyclic.cr_factor(coeffs)
     if mode == "spike":
         raise NotImplementedError(
             "factorization='spike' (grid-sharded) is ported in a later slice "
@@ -75,7 +84,13 @@ def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig) -> BandedFactor:
     raise ValueError(f"unknown factorization {mode!r}")
 
 
-def _sweeps(cfg: SolverConfig):
+def _sweeps(factor, cfg: SolverConfig):
+    """The solve that goes with ``factor``, chosen by its type (a stale
+    factor carried by the frozen-factor CG keeps its own engine)."""
+    if isinstance(factor, TwistedFactor):
+        return twisted_solve_kernel
+    if isinstance(factor, CRFactor):
+        return cyclic.cr_solve
     return (banded.banded_solve if cfg.factorization == "thomas"
             else banded_solve_kernel)
 
@@ -92,7 +107,7 @@ def make_apply(coeffs: torch.Tensor, cfg: SolverConfig, adjoint: bool = False):
     return lambda v: h_apply_kernel(planes, v.contiguous())
 
 
-def banded_solve_refined(factor: BandedFactor, rhs: torch.Tensor,
+def banded_solve_refined(factor, rhs: torch.Tensor,
                          cfg: SolverConfig, adjoint: bool,
                          extra_refine: bool | None = None,
                          refine_coeffs: torch.Tensor | None = None):
@@ -103,7 +118,7 @@ def banded_solve_refined(factor: BandedFactor, rhs: torch.Tensor,
     its own planes, stays whole: a stale G spliced with current planes is
     not a factorization of anything and its recurrences overflow f32 at
     601 rows."""
-    base = _sweeps(cfg)
+    base = _sweeps(factor, cfg)
     x = base(factor, rhs, adjoint=adjoint)
     passes = cfg.refine + (1 if extra_refine else 0)
     if passes:
