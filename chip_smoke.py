@@ -11,7 +11,8 @@ Phases (any failure makes the exit code non-zero):
   2. kernels: every kernel against its plain PyTorch version on the card, at
      its path's shapes, with its relative Frobenius error, max abs error,
      the time of both, the least time the card could take (bound) and, where
-     one PyTorch call computes the same function, that call's time;
+     one PyTorch call computes the same function, that call's time; and the
+     pivot step of the two factorizations launched alone (us a launch);
   3. data: a 256-element ring dataset synthesized over a breast phantom on
      a 401^2 / 0.6 mm grid at 350 kHz (seed 0) through the kernels;
   4. the slices: 10 nonlinear-CG iterations at 301^2 / 0.8 mm, 256
@@ -66,10 +67,11 @@ KERNELS = {
 }
 # Tolerances: the factors the bound of tests/test_pallas_factor.py:39; the
 # sweeps and K3 the port's own bounds (f32 sums taken in another order than
-# the plain path); K5 the bound of tests/test_batched_inv.py:82.
+# the plain path); K5, and the factorizations' pivot inverse launched alone,
+# the bound of tests/test_batched_inv.py:82.
 TOL = {"factor": 5e-6, "sweep": 1e-5, "stencil": 1e-6, "stencil_801": 1e-6,
        "twisted_factor": 5e-6, "twisted_sweep": 1e-5, "batched_inv": 5e-5,
-       "batched_inv_16": 5e-5}
+       "batched_inv_16": 5e-5, "pivot_inverse": 5e-5}
 # A trajectory against another (an engine against block-Thomas, a kernel
 # path against its plain path): rtol of loss and step, atol of velocity as
 # a fraction of its largest value. GOLDEN is tests/test_golden.py's (0.5 of
@@ -115,6 +117,30 @@ def timed(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
+
+
+def graph_timed(fn, launches=50, replays=5):
+    """ms per call of ``fn`` with the host out of the way: ``launches``
+    calls captured into one CUDA graph (the kernels launch on PyTorch's
+    current stream, which is the capture's), replayed ``replays`` times
+    between CUDA events. For kernels of a few microseconds, which a Python
+    loop cannot launch as fast as the card runs them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def host_timed(fn):
@@ -376,8 +402,35 @@ class Smoke:
                         bound(n * CMAC * bsz ** 3, 2 * p.numel() * C64),
                         library_ms)
 
+        self.pivot_inverse_alone(batch_of)
         self.cr_engine(c, b)
         self.check(not self.bad, f"kernel checks failed: {self.bad}")
+
+    def pivot_inverse_alone(self, batch_of):
+        """The pivot step of K1 / K4a without a profiler: the blocked
+        inverse of csrc/gj_pivot.cuh launched on its own (inv.cu's second
+        entry), one block as in K1 and two as in K4a, on a full panel and on
+        the ragged last panel of 301; K5's scalar chain, which that step ran
+        until the blocked inverse replaced it (36.8 us a launch inside
+        pivot_gj), beside it on the same blocks."""
+        import torch
+        from waveforminversionust_tpu_torch.ops.kernel_inv import (
+            batched_small_inv_kernel, pivot_inverse_kernel)
+
+        for batch, bsz in ((1, 64), (2, 64), (1, 45), (2, 45)):
+            p = batch_of(batch, bsz)
+            want = torch.linalg.inv(p.to(torch.complex128))
+            out = pivot_inverse_kernel(p)
+            ms = graph_timed(lambda: pivot_inverse_kernel(p))
+            chain_ms = graph_timed(lambda: batched_small_inv_kernel(p))
+            rel = rel_err(out.to(torch.complex128), want)
+            ok = bool(np.isfinite(rel)) and rel < TOL["pivot_inverse"]
+            log(f" pivot inverse alone, ({batch}, {bsz}, {bsz}): blocked "
+                f"{ms * 1e3:.2f} us a launch, rel {rel:.3e} (bound "
+                f"{TOL['pivot_inverse']:.0e}) {'ok' if ok else 'FAIL'}; "
+                f"scalar chain {chain_ms * 1e3:.2f} us")
+            if not ok:
+                self.bad.append(f"pivot inverse rel {rel:.3e}")
 
     def cr_engine(self, c, b):
         """The cyclic-reduction engine around K5 (its dense products are

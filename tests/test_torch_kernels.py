@@ -71,6 +71,9 @@ def test_cpu_wrappers_run_the_plain_versions():
     blocks = _fields(5, (3, 8, 8)) + 4 * torch.eye(8)
     assert torch.equal(kernel_inv.batched_small_inv_kernel(blocks),
                        batched_inv._batched_pivot_inv(blocks))
+    assert torch.equal(kernel_inv.pivot_inverse_kernel(blocks),
+                       batched_inv._batched_pivot_inv(blocks))
+    assert kernel_inv.pivot_launches == 0
     assert kernel_launch_counts() == NO_LAUNCHES
 
 
@@ -151,11 +154,20 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# Grids whose last Gauss-Jordan panel (64) and sub-panel (8) are ragged in
+# every way: 31 = 3 x 8 + 7, 61 = 7 x 8 + 5, 67 = a panel and 3, 129 = two
+# panels and 1.
+RAGGED = [pytest.param(12e-3, id="31"), pytest.param(24e-3, id="61"),
+          pytest.param(26.4e-3, id="67"), pytest.param(51.2e-3, id="129")]
+
+
 @pytest.mark.cuda
-def test_factor_kernel_matches_plain(cuda):
-    """K1 on 61x61 (nx not a panel multiple) vs the plain factor in
-    complex128: rel < 5e-6 (tests/test_pallas_factor.py's bound)."""
-    coeffs = _planes(24e-3, cuda)
+@pytest.mark.parametrize("extent", RAGGED)
+def test_factor_kernel_matches_plain(cuda, extent):
+    """K1 on grids whose width is no multiple of a panel or a sub-panel vs
+    the plain factor in complex128: rel < 5e-6
+    (tests/test_pallas_factor.py's bound)."""
+    coeffs = _planes(extent, cuda)
     g = kernel_factor.banded_factor_kernel(coeffs).g
     g64 = banded.banded_factor(coeffs.to(torch.complex128)).g
     torch.cuda.synchronize()
@@ -190,8 +202,8 @@ def test_stencil_kernel_matches_plain(cuda, adjoint):
 @pytest.mark.cuda
 def test_launch_counts_are_kernel_launches(cuda):
     """Each wrapper counts the kernels its C entry point launched: on 31x31
-    (one masked Gauss-Jordan panel) a factorization is 4 launches per row
-    (build_s, pivot_gj, panel_gemm, update_gemm), a solve 2, an apply 1."""
+    (one masked Gauss-Jordan panel) a factorization is 3 launches per row
+    (build_s, pivot_gj, panel_update), a solve 2, an apply 1."""
     coeffs = _planes(12e-3, cuda)
     ny = coeffs.shape[1]
     b = _fields(4, (3,) + tuple(coeffs.shape[1:]), cuda)
@@ -200,7 +212,7 @@ def test_launch_counts_are_kernel_launches(cuda):
     kernel_sweep.banded_solve_kernel(fac, b, True)
     kernel_stencil.h_apply_kernel(coeffs, b)
     torch.cuda.synchronize()
-    assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=4 * ny, sweep=2,
+    assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=3 * ny, sweep=2,
                                           stencil=1)
 
 
@@ -210,12 +222,14 @@ def _twisted_middles(ny):
 
 
 @pytest.mark.cuda
-def test_twisted_factor_kernel_matches_plain(cuda):
-    """K4a on 61x61 vs the plain twisted factor in complex128, for the
-    default middle row and for m past the centre (which the TPU kernel
-    refuses and this one takes): rel < 5e-6 (K1's bound). Rows above the
-    middle are block-Thomas's G: held against K1's kernel to 1e-5."""
-    coeffs = _planes(24e-3, cuda)
+@pytest.mark.parametrize("extent", RAGGED)
+def test_twisted_factor_kernel_matches_plain(cuda, extent):
+    """K4a on the same ragged grids vs the plain twisted factor in
+    complex128, for the default middle row and for m past the centre (which
+    the TPU kernel refuses and this one takes): rel < 5e-6 (K1's bound).
+    Rows above the middle are block-Thomas's G: held against K1's kernel to
+    1e-5."""
+    coeffs = _planes(extent, cuda)
     ny = coeffs.shape[1]
     g1 = kernel_factor.banded_factor_kernel(coeffs).g
     for m in _twisted_middles(ny):
@@ -248,7 +262,8 @@ def test_twisted_sweep_kernel_matches_plain(cuda, adjoint):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,b", [(150, 64), (5, 16), (3, 40), (1, 1)])
+@pytest.mark.parametrize("batch,b", [(150, 64), (5, 16), (3, 40), (1, 1),
+                                     (4, 17), (2, 63)])
 def test_batched_inv_kernel_matches_plain(cuda, batch, b):
     """K5 vs numpy-grade complex128 inverses of a seeded batch with a
     boosted diagonal: rel < 5e-5 (tests/test_batched_inv.py's bound); and
@@ -268,11 +283,39 @@ def test_batched_inv_kernel_matches_plain(cuda, batch, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,b", [(150, 64), (2, 45), (5, 16), (3, 40),
+                                     (1, 1), (4, 17), (2, 63), (3, 8),
+                                     (3, 9)])
+def test_pivot_inverse_kernel_matches_plain(cuda, batch, b):
+    """The factorizations' blocked pivot inverse, launched alone, at every
+    kind of ragged width (of the block and of its sub-panels of 8), held as
+    K5 is: rel < 5e-5 against complex128 inverses and against the plain
+    version; the Dirichlet-scale pivot without cancellation. It counts its
+    launches apart from K5's."""
+    a = _fields(9, (batch, b, b), cuda) / np.sqrt(b) + 2 * torch.eye(b, device=cuda)
+    reset_kernel_launch_counts()
+    before = kernel_inv.pivot_launches
+    out = kernel_inv.pivot_inverse_kernel(a)
+    torch.cuda.synchronize()
+    assert kernel_inv.pivot_launches == before + 1
+    assert kernel_launch_counts() == NO_LAUNCHES
+    want = torch.linalg.inv(a.to(torch.complex128))
+    rel = (torch.linalg.norm((out - want).reshape(batch, -1), dim=1)
+           / torch.linalg.norm(want.reshape(batch, -1), dim=1))
+    assert float(rel.max()) < 5e-5
+    assert _rel(out, batched_inv._batched_pivot_inv(a)) < 5e-5
+    d = (1.5625e6 * torch.eye(b, device=cuda)).to(torch.complex64)[None]
+    got = kernel_inv.pivot_inverse_kernel(d)[0]
+    torch.testing.assert_close(got, (torch.eye(b, device=cuda) / 1.5625e6
+                                     ).to(torch.complex64), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("factorization", ["twisted", "cr"])
 def test_engine_launch_counts(cuda, factorization):
     """A solve through each opt-in engine launches its own kernels and
-    none of block-Thomas's: on 31x31 a twisted factorization is 4 launches
-    per step of both chains plus 4 for the middle, a twisted solve 2; a
+    none of block-Thomas's: on 31x31 a twisted factorization is 3 launches
+    per step of both chains plus 3 for the middle, a twisted solve 2; a
     cyclic-reduction factorization one batched pivot inverse per level and
     root (31 < 64: one panel each)."""
     coeffs = _planes(12e-3, cuda)
@@ -286,7 +329,7 @@ def test_engine_launch_counts(cuda, factorization):
     assert _rel(apply.h_apply(coeffs, x), b) < 1e-4
     if factorization == "twisted":
         steps = max(fac.m, ny - 1 - fac.m) + 1
-        want = dict(NO_LAUNCHES, twisted_factor=4 * steps, twisted_sweep=2)
+        want = dict(NO_LAUNCHES, twisted_factor=3 * steps, twisted_sweep=2)
     else:
         want = dict(NO_LAUNCHES, batched_inv=len(fac.levels) + 1)
     assert kernel_launch_counts() == want

@@ -26,7 +26,7 @@ from waveforminversionust_tpu_torch import interop
 from waveforminversionust_tpu_torch.config import (PMLConfig, SolverConfig,
                                                    StencilConfig)
 from waveforminversionust_tpu_torch.models.grid import Grid2D
-from waveforminversionust_tpu_torch.ops import apply, banded
+from waveforminversionust_tpu_torch.ops import apply, banded, batched_inv
 from waveforminversionust_tpu_torch.ops import solve as tsolve
 from waveforminversionust_tpu_torch.ops.stencil import (d_map,
                                                         helmholtz_coefficients,
@@ -152,6 +152,28 @@ def _stencil_params_f64(vmin, vmax, h):
     M = np.stack([(np.pi ** 2 * (2 - P - Q)).ravel(),
                   (2 * np.pi ** 2 * (1 - P * Q)).ravel()], 1)
     return np.linalg.lstsq(M, S4.ravel() - 5 / 6 * S1.ravel(), rcond=None)[0]
+
+
+@pytest.mark.parametrize("w", [8, 16, 32])
+def test_two_level_blocking_keeps_fp32_accuracy(jax_planes, w):
+    """The blocked Gauss-Jordan at width 64 with its pivot blocks inverted
+    by the same routine at width w (what the factor kernels' pivot step does
+    inside a thread block) on Schur rows of the 61x61 operator (first,
+    second, a middle one, last; the Dirichlet rows carry pivots ~1.6e6), in
+    complex64, against torch.linalg.inv in complex128: rel < 5e-6, the
+    factor's own bound (tests/test_pallas_factor.py)."""
+    c128 = _to_t(_planes_np(jax_planes)).to(torch.complex128)
+    g128 = banded.banded_factor(c128).g
+    ny = c128.shape[1]
+    for i in (0, 1, ny // 2, ny - 1):
+        s128 = banded.schur_complement(c128, i, g128[i - 1] if i else None)
+        got = batched_inv.batched_inv(
+            s128.to(torch.complex64)[None], block=64,
+            pivot_inv=lambda p: batched_inv.batched_inv(p, block=w))[0]
+        want = torch.linalg.inv(s128)
+        rel = float(torch.linalg.norm(got.to(torch.complex128) - want)
+                    / torch.linalg.norm(want))
+        assert rel < 5e-6, (i, rel)
 
 
 def test_stencil_params_match():

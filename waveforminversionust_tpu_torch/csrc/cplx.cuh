@@ -20,3 +20,9 @@ __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
   acc.x += a.x * b.x - a.y * b.y;
   acc.y += a.x * b.y + a.y * b.x;
 }
+// acc += a b as four fused multiply-adds (cfma's two products, a difference
+// and a sum round once more and take six instructions)
+__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
+  acc.x = fmaf(-a.y, b.y, fmaf(a.x, b.x, acc.x));
+  acc.y = fmaf(a.y, b.x, fmaf(a.x, b.y, acc.y));
+}

@@ -12,18 +12,24 @@
 // then its in-place blocked Gauss-Jordan inverse (row_inverse.cuh, shared
 // with the twisted factorization; here every step carries one job).
 //
-// Bound: at 301^2 each row costs 1 + 5 x 3 = 16 launches (4816 per
+// Bound: at 301^2 each row costs 1 + 5 x 2 = 11 launches (3311 per
 // factorization). Not FLOPs or bytes (the rank-64 updates are ~6 MFLOP
-// each, every byte stays in L2) but the pivot inverse, a 64-step chain of
-// block-wide barriers on one SM: about 40 us of the ~58 us a panel takes
-// at 301^2. The design keeps P in registers and one barrier per step;
-// spreading the pivot inverse over more SMs (a recursive 2x2 split) and
-// capturing the per-row series in a CUDA graph are the next steps.
+// each, every byte stays in L2) but latency on one SM: the pivot inverse of
+// each panel is 64 dependent steps. As one scalar chain with a block-wide
+// barrier per step it took 36.8 us of the ~58 us of a panel, and a
+// factorization 88.0-88.3 ms. Now the pivot inverse is blocked again inside
+// the thread block (gj_pivot.cuh: 8 steps inside one warp, one barrier per
+// 8; 19.9 us), the panel's copies are made by the launches that write those
+// rows and columns, and the two products and the update of a panel are one
+// launch (11.4 us for 18.5): a factorization takes 51.5-51.7 ms (both in
+// one run on an NVIDIA H100 80GB HBM3, 700 W). What is left: the pivot
+// inverse is 62% of the device time, the gaps between the launches of a row
+// 6% of the whole (a CUDA graph).
 
 #include "row_inverse.cuh"
 
 // coeffs (9, ny, nx) -> g (ny, nx, nx); scratch holds job_scratch(nx) =
-// kBk*kBk + 3*kBk*nx complex64 values (pinv, rs, cz, cs). *launched is
+// kBk*kBk + 4*kBk*nx complex64 values (pinv, rs, cs, two cz). *launched is
 // raised by the number of kernels launched.
 extern "C" int factor_g(const void* coeffs, void* g, void* scratch, int ny,
                         int nx, int* launched, void* stream_ptr) {

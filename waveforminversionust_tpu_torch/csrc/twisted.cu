@@ -31,9 +31,12 @@
 // carrying the top chain's row i and the bottom chain's row ny-1-i as two
 // grid slices, so both chains advance in one series (the shorter chain's
 // slice is dropped once it has reached the middle); then one series for the
-// middle row with both Schur terms. At 301^2: 151 series of 16 launches. As
-// in factor.cu the bound is the 64-step pivot chain of each panel, which the
-// two chains now run side by side on two SMs.
+// middle row with both Schur terms. At 301^2: 151 series of 11 launches. As
+// in factor.cu the bound is the 64 dependent pivot steps of each panel, which
+// the two chains run side by side on two SMs: 46.5-48.2 ms a factorization
+// with the scalar pivot chain and two product launches a panel, 29.6-29.7 ms
+// with the blocked inverse of gj_pivot.cuh and the one panel_update launch
+// (one run, NVIDIA H100 80GB HBM3, 700 W).
 //
 // Sweeps: as in sweep.cu a block owns kRhs right-hand sides and walks the
 // rows inside the block with its running vector in shared memory, streaming

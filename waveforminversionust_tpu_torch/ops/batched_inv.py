@@ -51,14 +51,19 @@ def _batched_pivot_inv(p: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def batched_inv(a: torch.Tensor, block: int = 32) -> torch.Tensor:
+def batched_inv(a: torch.Tensor, block: int = 32,
+                pivot_inv=None) -> torch.Tensor:
     """Inverse of a batch of complex matrices, (B, n, n) -> (B, n, n).
 
     Unpivoted blocked Gauss-Jordan in place (no augmentation): per panel
     one batched pivot inversion plus three batched products. n is padded
     to a multiple of ``block`` with an identity extension (inverted
     exactly, then cropped). The pivot inverse of a CUDA tensor is the CUDA
-    kernel, of a CPU tensor its plain version."""
+    kernel, of a CPU tensor its plain version; ``pivot_inv`` replaces both
+    (this routine again at a smaller ``block`` is the two-level blocking
+    that ``csrc/gj_pivot.cuh`` runs inside a thread block)."""
+    if pivot_inv is None:
+        pivot_inv = batched_small_inv_kernel
     B, n, _ = a.shape
     npanels = -(-n // block)
     npad = npanels * block
@@ -72,7 +77,7 @@ def batched_inv(a: torch.Tensor, block: int = 32) -> torch.Tensor:
 
     for k in range(npanels):
         lo, hi = k * block, (k + 1) * block
-        pinv = batched_small_inv_kernel(w[:, lo:hi, lo:hi].contiguous())
+        pinv = pivot_inv(w[:, lo:hi, lo:hi].contiguous())
         r = w[:, lo:hi, :]                                   # (B, b, n)
         # column block with the pivot rows zeroed: the rank-b update then
         # leaves rows [lo:hi) untouched (they are overwritten below)

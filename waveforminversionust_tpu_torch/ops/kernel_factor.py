@@ -41,7 +41,7 @@ def banded_factor_kernel(coeffs: torch.Tensor) -> BandedFactor:
         raise ValueError("factor kernel takes contiguous complex64 planes")
     _, ny, nx = coeffs.shape
     g = torch.empty((ny, nx, nx), dtype=torch.complex64, device=coeffs.device)
-    scratch = torch.empty(PANEL * PANEL + 3 * PANEL * nx, dtype=torch.complex64,
+    scratch = torch.empty(PANEL * PANEL + 4 * PANEL * nx, dtype=torch.complex64,
                           device=coeffs.device)
     n = ctypes.c_int(0)
     rc = _bind()(coeffs.data_ptr(), g.data_ptr(), scratch.data_ptr(), ny, nx,

@@ -64,7 +64,7 @@ def twisted_factor_kernel(coeffs: torch.Tensor,
     m = check_middle_row(ny, m)
     g = torch.empty((ny, nx, nx), dtype=torch.complex64, device=coeffs.device)
     # pinv, rs, cz, cs of the Gauss-Jordan panels, once per chain
-    scratch = torch.empty(2 * (PANEL * PANEL + 3 * PANEL * nx),
+    scratch = torch.empty(2 * (PANEL * PANEL + 4 * PANEL * nx),
                           dtype=torch.complex64, device=coeffs.device)
     n = ctypes.c_int(0)
     rc = _bind_factor()(coeffs.data_ptr(), g.data_ptr(), scratch.data_ptr(),
