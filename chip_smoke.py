@@ -11,8 +11,10 @@ Phases (any failure makes the exit code non-zero):
   2. kernels: every kernel against its plain PyTorch version on the card, at
      its path's shapes, with its relative Frobenius error, max abs error,
      the time of both, the least time the card could take (bound) and, where
-     one PyTorch call computes the same function, that call's time; and the
-     pivot step of the two factorizations launched alone (us a launch);
+     one PyTorch call computes the same function, that call's time; the
+     block-Thomas sweeps also at the data phase's 401^2, and their cluster
+     launches; and the pivot step of the two factorizations launched alone
+     (us a launch);
   3. data: a 256-element ring dataset synthesized over a breast phantom on
      a 401^2 / 0.6 mm grid at 350 kHz (seed 0) through the kernels;
   4. the slices: 10 nonlinear-CG iterations at 301^2 / 0.8 mm, 256
@@ -69,7 +71,8 @@ KERNELS = {
 # sweeps and K3 the port's own bounds (f32 sums taken in another order than
 # the plain path); K5, and the factorizations' pivot inverse launched alone,
 # the bound of tests/test_batched_inv.py:82.
-TOL = {"factor": 5e-6, "sweep": 1e-5, "stencil": 1e-6, "stencil_801": 1e-6,
+TOL = {"factor": 5e-6, "sweep": 1e-5, "sweep_401": 1e-5, "stencil": 1e-6,
+       "stencil_801": 1e-6,
        "twisted_factor": 5e-6, "twisted_sweep": 1e-5, "batched_inv": 5e-5,
        "batched_inv_16": 5e-5, "pivot_inverse": 5e-5}
 # A trajectory against another (an engine against block-Thomas, a kernel
@@ -160,6 +163,39 @@ def bound(flops, nbytes):
     the FP32 peak, whichever is larger; and which of the two it is."""
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sweep_launch(shape, ms):
+    """Log K2's last launch (thread-block clusters: blocks and right-hand
+    sides a cluster, threads, shared memory, clusters the card holds at
+    once) and the bytes of G its blocks copy from L2 a solve, counted from
+    the rows each block loads (its slice and one halo row each side), with
+    the rate they imply at ``ms``."""
+    from waveforminversionust_tpu_torch.ops import kernel_sweep
+
+    p = kernel_sweep.last_launch
+    _, ny, nx = shape
+    c = p["cluster"]
+    width = -(-nx // c)
+    rows = 0
+    for rank in range(c):
+        o0 = min(nx, rank * width)
+        o1 = min(nx, o0 + width)
+        if o1 > o0:
+            rows += min(nx, o1 + 1) - max(0, o0 - 1)
+    l2 = (2 * ny - 1) * p["clusters"] * rows * nx * C64
+    log(f"  K2 launch: {p['clusters']} clusters of {c} blocks x "
+        f"{p['threads']} threads, {p['rows']} gemv rows a block, "
+        f"{p['rhs']} RHS a cluster, {p['smem_bytes']} B shared memory a "
+        f"block, {p['max_active_clusters']} clusters resident at once; G "
+        f"copied from L2 {l2 / 1e9:.3f} GB a solve ({rows} rows of a G_i a "
+        f"cluster), {l2 / ms / 1e9:.3f} TB/s at {ms:.3f} ms")
+
+
+def data_grid():
+    """The data phase's grid: bench.py's fallback, 0.6 mm over 120 mm."""
+    from waveforminversionust_tpu_torch.models.grid import Grid2D
+    return Grid2D.centered(120e-3, 0.6e-3)
 
 
 @contextlib.contextmanager
@@ -324,6 +360,7 @@ class Smoke:
             xp, plain_ms = timed(lambda: banded.banded_solve(fac, b, adjoint), REPS)
             log(f" K2 sweeps, adjoint={adjoint}, {n_rhs} RHS:")
             self.record("sweep", xk, xp, ms, plain_ms, sweep_bound)
+            sweep_launch(b.shape, ms)
             res = rel_err(op(fac.coeffs, xk), b)
             log(f"  true relative residual of the kernel solve: {res:.3e}")
             if not res < 2e-5:
@@ -341,6 +378,8 @@ class Smoke:
             if not res < 2e-5:
                 self.bad.append(f"twisted sweep residual {res:.3e} >= 2e-5")
             del xk, xp, tx, tp
+        self.sweep_yardstick(fac, b)
+        self.sweep_data_shape()
 
         for label, gsize, batch, name in (
                 ("whole-field site", grid, n_rhs, "stencil"),
@@ -405,6 +444,62 @@ class Smoke:
         self.pivot_inverse_alone(batch_of)
         self.cr_engine(c, b)
         self.check(not self.bad, f"kernel checks failed: {self.bad}")
+
+    def sweep_yardstick(self, fac, b):
+        """K2's yardstick: the same 2 ny - 1 products with full reuse of G
+        and no tridiagonal terms, as chained torch.matmul of (nx, nx) x
+        (nx, batch) in one CUDA graph."""
+        import torch
+
+        n_rhs, ny, nx = b.shape
+        steps = 2 * ny - 1
+        y = [b[0].T.contiguous(), torch.empty(nx, n_rhs, dtype=b.dtype,
+                                              device=b.device)]
+
+        def chain():
+            for s in range(steps):
+                torch.matmul(fac.g[s if s < ny else 2 * ny - 2 - s],
+                             y[s % 2], out=y[1 - s % 2])
+
+        yard_ms = graph_timed(chain, launches=1, replays=REPS)
+        log(f" K2 yardstick: {steps} chained torch.matmul ({nx}x{nx}) x "
+            f"({nx}x{n_rhs}) complex64 in one CUDA graph: {yard_ms:.3f} ms")
+
+    def sweep_data_shape(self):
+        """K2 at the data phase's shape, where it takes another
+        instantiation than at 301^2: the forward solve of 256 right-hand
+        sides through the 401^2 / 0.6 mm breast operator's factor, against
+        the plain sweeps (rel < 1e-5) and its true residual (< 2e-5)."""
+        import torch
+        from waveforminversionust_tpu_torch.config import SolverConfig
+        from waveforminversionust_tpu_torch.models.phantom import breast_phantom
+        from waveforminversionust_tpu_torch.ops import apply, banded
+        from waveforminversionust_tpu_torch.ops.kernel_factor import banded_factor_kernel
+        from waveforminversionust_tpu_torch.ops.kernel_sweep import banded_solve_kernel
+        from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
+
+        fine, cfg = data_grid(), SolverConfig()
+        vel = torch.as_tensor(breast_phantom(fine), device=self.device)
+        coeffs = helmholtz_coefficients(vel, fine, 350e3, cfg.pml, cfg.stencil)
+        fac = banded_factor_kernel(coeffs)
+        shape = (self.n_tx,) + fine.shape
+        rng = np.random.default_rng(1)
+        b = torch.as_tensor((rng.standard_normal(shape)
+                             + 1j * rng.standard_normal(shape)
+                             ).astype(np.complex64), device=self.device)
+        ny, nx = fine.shape
+        sweep_bound = bound((2 * ny - 1) * CMAC * nx * nx * self.n_tx,
+                            (ny * nx * nx + 9 * ny * nx + 2 * b.numel()) * C64)
+        xk, ms = timed(lambda: banded_solve_kernel(fac, b), REPS)
+        xp, plain_ms = timed(lambda: banded.banded_solve(fac, b), REPS)
+        log(f" K2 sweeps at the data phase's shape, {ny}^2, {self.n_tx} RHS, "
+            f"forward:")
+        self.record("sweep_401", xk, xp, ms, plain_ms, sweep_bound)
+        sweep_launch(b.shape, ms)
+        res = rel_err(apply.h_apply(coeffs, xk), b)
+        log(f"  true relative residual of the kernel solve: {res:.3e}")
+        if not res < 2e-5:
+            self.bad.append(f"sweep_401 residual {res:.3e} >= 2e-5")
 
     def pivot_inverse_alone(self, batch_of):
         """The pivot step of K1 / K4a without a profiler: the blocked
@@ -483,12 +578,11 @@ class Smoke:
         import torch
         from waveforminversionust_tpu_torch.config import SolverConfig
         from waveforminversionust_tpu_torch.data.synthesize import synthesize_ring_dataset
-        from waveforminversionust_tpu_torch.models.grid import Grid2D
         from waveforminversionust_tpu_torch.models.phantom import breast_phantom
 
         # bench.py's fallback data: the same ring over a 0.6 mm grid. No
         # device is named: the entry point runs on the card by default.
-        fine = Grid2D.centered(120e-3, 0.6e-3)
+        fine = data_grid()
         t0 = time.perf_counter()
         self.ds = synthesize_ring_dataset(breast_phantom(fine), fine,
                                           self.acq_config,

@@ -114,12 +114,33 @@ def test_solver_config_dispatch(monkeypatch, factorization, fused_apply):
                                  SolverConfig(method=SolverMethod.BORN),
                                  SolverConfig(factorization="spike",
                                               refactor_every=2),
-                                 SolverConfig(factorization="spike")])
+                                 SolverConfig(factorization="spike")]
+                         + [SolverConfig(factorization=mode, **hybrid)
+                            for mode in ("auto", "thomas")
+                            for hybrid in (dict(factor_schulz_steps=2),
+                                           dict(fast_sweeps=True))])
 def test_later_slices_raise(cfg):
     grid = Grid2D.centered(4e-3, 0.8e-3)
     with pytest.raises(NotImplementedError, match="later slice"):
         tsolve.make_helmholtz_operator(torch.full(grid.shape, 1500.0), F,
                                        grid, cfg)
+
+
+@pytest.mark.parametrize("factorization", ["pallas", "twisted", "cr"])
+def test_engines_ignore_the_scan_hybrids(factorization):
+    """The Schulz and embedded-sweep options only steer the reference's scan
+    path: "pallas", "twisted" and "cr" build and solve as without them."""
+    grid = Grid2D.centered(4e-3, 0.8e-3)
+    vel = torch.as_tensor(smooth_blob_phantom(grid, radius=1.5e-3, dc=60))
+    cfg = SolverConfig(factorization=factorization, factor_schulz_steps=2,
+                       fast_sweeps=True, pml=PMLConfig(l_pml=1.6e-3))
+    op = tsolve.make_helmholtz_operator(vel, F, grid, cfg)
+    src = _fields(10, (2,) + grid.shape)
+    u = tsolve.helmholtz_operator_solve(op, src, grid, cfg)
+    plain = SolverConfig(factorization=factorization, pml=cfg.pml)
+    want = tsolve.helmholtz_operator_solve(
+        tsolve.make_helmholtz_operator(vel, F, grid, plain), src, grid, plain)
+    assert _rel(u, want) < 1e-6
 
 
 def test_build_key_follows_the_sources(monkeypatch, tmp_path):
@@ -174,16 +195,67 @@ def test_factor_kernel_matches_plain(cuda, extent):
     assert _rel(g.to(torch.complex128), g64) < 5e-6
 
 
+def _random_planes(seed, ny, nx, device):
+    """Seeded planes with a dominant main diagonal: a block-tridiagonal
+    system of any shape, ny = 1 and 2 included."""
+    c = _fields(seed, (9, ny, nx), device) / 4
+    c[0] += 4
+    return c
+
+
+# K2's cluster kernel, each of its three instantiations through shapes that
+# take it: 16 right-hand sides a cluster (nx <= 384) on ragged output slices
+# (31, 61 over 8 blocks), a grid narrower than a cluster (6 < 8 blocks),
+# ny = 1 and 2, and the main path's width 301; 8 (385 <= nx <= 624) at the
+# data's width 401; 4 (nx >= 625) at 701. Batch 1, 9, 17 and 40: ragged
+# right-hand-side groups (batch % 16 and % 8 not 0).
+SWEEP_SHAPES = [pytest.param(12e-3, id="31"), pytest.param(24e-3, id="61"),
+                pytest.param(4e-3, id="6"), pytest.param((1, 9), id="1x9"),
+                pytest.param((2, 5), id="2x5"),
+                pytest.param((5, 301), id="5x301"),
+                pytest.param((5, 401), id="5x401"),
+                pytest.param((3, 701), id="3x701")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("adjoint", [False, True])
-def test_sweep_kernel_matches_plain(cuda, adjoint):
-    """K2 vs the plain sweeps through the same factor: rel < 1e-5."""
-    coeffs = _planes(24e-3, cuda)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_sweep_kernel_matches_plain(cuda, adjoint, shape):
+    """K2 vs the plain sweeps through the same factor, batch 1, 9, 17 and
+    40: rel < 1e-5, through the instantiation its width selects."""
+    if isinstance(shape, tuple):
+        coeffs = _random_planes(11, *shape, cuda)
+    else:
+        coeffs = _planes(shape, cuda)
     fac = banded.banded_factor(coeffs)
-    b = _fields(2, (9,) + tuple(coeffs.shape[1:]), cuda)
-    x = kernel_sweep.banded_solve_kernel(fac, b, adjoint)
-    torch.cuda.synchronize()
-    assert _rel(x, banded.banded_solve(fac, b, adjoint)) < 1e-5
+    nx = coeffs.shape[2]
+    for batch in (1, 9, 17, 40):
+        b = _fields(2, (batch,) + tuple(coeffs.shape[1:]), cuda)
+        x = kernel_sweep.banded_solve_kernel(fac, b, adjoint)
+        torch.cuda.synchronize()
+        assert kernel_sweep.last_launch["rhs"] == (
+            16 if nx <= 384 else 8 if nx <= 624 else 4)
+        assert _rel(x, banded.banded_solve(fac, b, adjoint)) < 1e-5, batch
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_launch(cuda):
+    """A 301-wide solve of 256 right-hand sides (the main path's) takes
+    clusters of 2 to 8 blocks, each G element read serving 16 right-hand
+    sides, all resident at once; a grid wider than 1264 raises."""
+    coeffs = _random_planes(3, 2, 301, cuda)
+    fac = banded.banded_factor(coeffs)
+    b = _fields(4, (256, 2, 301), cuda)
+    for adjoint in (False, True):
+        kernel_sweep.banded_solve_kernel(fac, b, adjoint)
+        p = kernel_sweep.last_launch
+        assert 2 <= p["cluster"] <= 8 and p["rhs"] == 16, p
+        assert p["clusters"] == 256 // p["rhs"], p
+        assert p["max_active_clusters"] >= p["clusters"], p
+    wide = _random_planes(3, 1, 1265, cuda)
+    with pytest.raises(RuntimeError, match="nx=1265"):
+        kernel_sweep.banded_solve_kernel(
+            banded.banded_factor(wide), _fields(4, (1, 1, 1265), cuda))
 
 
 @pytest.mark.cuda
@@ -203,7 +275,8 @@ def test_stencil_kernel_matches_plain(cuda, adjoint):
 def test_launch_counts_are_kernel_launches(cuda):
     """Each wrapper counts the kernels its C entry point launched: on 31x31
     (one masked Gauss-Jordan panel) a factorization is 3 launches per row
-    (build_s, pivot_gj, panel_update), a solve 2, an apply 1."""
+    (build_s, pivot_gj, panel_update), a solve 1 (both passes in one
+    cluster launch), an apply 1."""
     coeffs = _planes(12e-3, cuda)
     ny = coeffs.shape[1]
     b = _fields(4, (3,) + tuple(coeffs.shape[1:]), cuda)
@@ -212,7 +285,7 @@ def test_launch_counts_are_kernel_launches(cuda):
     kernel_sweep.banded_solve_kernel(fac, b, True)
     kernel_stencil.h_apply_kernel(coeffs, b)
     torch.cuda.synchronize()
-    assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=3 * ny, sweep=2,
+    assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=3 * ny, sweep=1,
                                           stencil=1)
 
 

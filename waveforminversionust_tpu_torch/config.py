@@ -31,9 +31,12 @@ What the port does with each field in this slice:
   ``factor_precision``: accepted; in this slice every solve and factor runs
   full FP32 (complex64), which is also what the JAX CPU path runs. Their
   reduced-precision Hopper mode is queued in ROADMAP.md.
-* ``factor_schulz_steps`` and ``fast_sweeps``: accepted; the exact
-  factorization always runs (the Schulz hybrid and the embedded sweep
-  operators are not ported yet).
+* ``factor_schulz_steps`` and ``fast_sweeps``: under ``"auto"`` and
+  ``"thomas"`` the reference turns them into the Schulz hybrid and the
+  embedded sweep operators, which are not ported: ``factor_schulz_steps >
+  0`` or ``fast_sweeps=True`` there raises ``NotImplementedError``.
+  ``"pallas"``, ``"twisted"`` and ``"cr"`` ignore both, as the reference
+  does.
 """
 
 from __future__ import annotations

@@ -67,8 +67,21 @@ def _check_method(cfg: SolverConfig):
 
 def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig):
     """Direct factorization per ``cfg.factorization``: a
-    :class:`BandedFactor`, :class:`TwistedFactor` or :class:`CRFactor`."""
+    :class:`BandedFactor`, :class:`TwistedFactor` or :class:`CRFactor`.
+
+    Under "auto" and "thomas" the reference runs the Schulz hybrid or the
+    embedded sweep operators when ``factor_schulz_steps > 0`` or
+    ``fast_sweeps`` is true; neither is ported, so those raise. "pallas",
+    "twisted" and "cr" ignore both fields, as the reference does."""
     mode = cfg.factorization
+    if mode in ("auto", "thomas") and (cfg.factor_schulz_steps > 0
+                                       or cfg.fast_sweeps is True):
+        raise NotImplementedError(
+            f"factorization={mode!r} with factor_schulz_steps="
+            f"{cfg.factor_schulz_steps} / fast_sweeps={cfg.fast_sweeps}: the "
+            f"Schulz hybrid and the embedded sweep operators are ported in a "
+            f"later slice (ROADMAP.md C2); set both off or use "
+            f"factorization='pallas'")
     if mode in ("auto", "pallas"):
         return banded_factor_kernel(coeffs)
     if mode == "thomas":
