@@ -11,9 +11,9 @@ Phases (any failure makes the exit code non-zero):
   2. kernels: every kernel against its plain PyTorch version on the card, at
      its path's shapes, with its relative Frobenius error, max abs error,
      the time of both, the least time the card could take (bound) and, where
-     one PyTorch call computes the same function, that call's time; the
-     block-Thomas sweeps also at the data phase's 401^2, and their cluster
-     launches; and the pivot step of the two factorizations launched alone
+     one PyTorch call computes the same function, that call's time; both
+     sweeps (block-Thomas and twisted) also at the data phase's 401^2, and
+     their cluster launches; and the pivot step of the two factorizations launched alone
      (us a launch);
   3. data: a 256-element ring dataset synthesized over a breast phantom on
      a 401^2 / 0.6 mm grid at 350 kHz (seed 0) through the kernels;
@@ -72,8 +72,8 @@ KERNELS = {
 # the plain path); K5, and the factorizations' pivot inverse launched alone,
 # the bound of tests/test_batched_inv.py:82.
 TOL = {"factor": 5e-6, "sweep": 1e-5, "sweep_401": 1e-5, "stencil": 1e-6,
-       "stencil_801": 1e-6,
-       "twisted_factor": 5e-6, "twisted_sweep": 1e-5, "batched_inv": 5e-5,
+       "stencil_801": 1e-6, "twisted_factor": 5e-6, "twisted_sweep": 1e-5,
+       "twisted_sweep_401": 1e-5, "batched_inv": 5e-5,
        "batched_inv_16": 5e-5, "pivot_inverse": 5e-5}
 # A trajectory against another (an engine against block-Thomas, a kernel
 # path against its plain path): rtol of loss and step, atol of velocity as
@@ -165,16 +165,14 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sweep_launch(shape, ms):
-    """Log K2's last launch (thread-block clusters: blocks and right-hand
-    sides a cluster, threads, shared memory, clusters the card holds at
-    once) and the bytes of G its blocks copy from L2 a solve, counted from
-    the rows each block loads (its slice and one halo row each side), with
+def sweep_launch(name, p, steps, nx, ms):
+    """Log a sweep kernel's last launch ``p`` (thread-block clusters: blocks
+    and right-hand sides a cluster, threads, shared memory, clusters the
+    card holds at once) and the bytes of G its blocks copy from L2 a solve,
+    counted from the rows each block loads (its slice and one halo row each
+    side) over the ``steps`` row steps a cluster walks (K2 2 ny - 1; K4b ny
+    on average, the two chains of a group 2 ny over both launches), with
     the rate they imply at ``ms``."""
-    from waveforminversionust_tpu_torch.ops import kernel_sweep
-
-    p = kernel_sweep.last_launch
-    _, ny, nx = shape
     c = p["cluster"]
     width = -(-nx // c)
     rows = 0
@@ -183,8 +181,8 @@ def sweep_launch(shape, ms):
         o1 = min(nx, o0 + width)
         if o1 > o0:
             rows += min(nx, o1 + 1) - max(0, o0 - 1)
-    l2 = (2 * ny - 1) * p["clusters"] * rows * nx * C64
-    log(f"  K2 launch: {p['clusters']} clusters of {c} blocks x "
+    l2 = steps * p["clusters"] * rows * nx * C64
+    log(f"  {name} launch: {p['clusters']} clusters of {c} blocks x "
         f"{p['threads']} threads, {p['rows']} gemv rows a block, "
         f"{p['rhs']} RHS a cluster, {p['smem_bytes']} B shared memory a "
         f"block, {p['max_active_clusters']} clusters resident at once; G "
@@ -293,7 +291,8 @@ class Smoke:
         from waveforminversionust_tpu_torch.models.phantom import breast_phantom
         from waveforminversionust_tpu_torch.ops import (apply, banded,
                                                         batched_inv, cyclic,
-                                                        twisted)
+                                                        kernel_sweep,
+                                                        kernel_twisted, twisted)
         from waveforminversionust_tpu_torch.ops.kernel_factor import banded_factor_kernel
         from waveforminversionust_tpu_torch.ops.kernel_inv import batched_small_inv_kernel
         from waveforminversionust_tpu_torch.ops.kernel_stencil import h_apply_kernel
@@ -360,7 +359,7 @@ class Smoke:
             xp, plain_ms = timed(lambda: banded.banded_solve(fac, b, adjoint), REPS)
             log(f" K2 sweeps, adjoint={adjoint}, {n_rhs} RHS:")
             self.record("sweep", xk, xp, ms, plain_ms, sweep_bound)
-            sweep_launch(b.shape, ms)
+            sweep_launch("K2", kernel_sweep.last_launch, 2 * ny - 1, nx, ms)
             res = rel_err(op(fac.coeffs, xk), b)
             log(f"  true relative residual of the kernel solve: {res:.3e}")
             if not res < 2e-5:
@@ -373,6 +372,7 @@ class Smoke:
                 f"distance to K2's solution of the same system "
                 f"{rel_err(tx, xk):.3e}:")
             self.record("twisted_sweep", tx, tp, ms, plain_ms, sweep_bound)
+            sweep_launch("K4b", kernel_twisted.last_sweep_launch, ny, nx, ms)
             res = rel_err(op(tfac.coeffs, tx), b)
             log(f"  true relative residual of the kernel solve: {res:.3e}")
             if not res < 2e-5:
@@ -466,14 +466,16 @@ class Smoke:
             f"({nx}x{n_rhs}) complex64 in one CUDA graph: {yard_ms:.3f} ms")
 
     def sweep_data_shape(self):
-        """K2 at the data phase's shape, where it takes another
-        instantiation than at 301^2: the forward solve of 256 right-hand
-        sides through the 401^2 / 0.6 mm breast operator's factor, against
+        """K2 and K4b at the data phase's shape, where they take other
+        instantiations than at 301^2: the forward solve of 256 right-hand
+        sides through the 401^2 / 0.6 mm breast operator's factors, against
         the plain sweeps (rel < 1e-5) and its true residual (< 2e-5)."""
         import torch
         from waveforminversionust_tpu_torch.config import SolverConfig
         from waveforminversionust_tpu_torch.models.phantom import breast_phantom
-        from waveforminversionust_tpu_torch.ops import apply, banded
+        from waveforminversionust_tpu_torch.ops import (apply, banded,
+                                                        kernel_sweep,
+                                                        kernel_twisted, twisted)
         from waveforminversionust_tpu_torch.ops.kernel_factor import banded_factor_kernel
         from waveforminversionust_tpu_torch.ops.kernel_sweep import banded_solve_kernel
         from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
@@ -495,11 +497,24 @@ class Smoke:
         log(f" K2 sweeps at the data phase's shape, {ny}^2, {self.n_tx} RHS, "
             f"forward:")
         self.record("sweep_401", xk, xp, ms, plain_ms, sweep_bound)
-        sweep_launch(b.shape, ms)
+        sweep_launch("K2", kernel_sweep.last_launch, 2 * ny - 1, nx, ms)
         res = rel_err(apply.h_apply(coeffs, xk), b)
         log(f"  true relative residual of the kernel solve: {res:.3e}")
         if not res < 2e-5:
             self.bad.append(f"sweep_401 residual {res:.3e} >= 2e-5")
+        del fac, xk, xp
+
+        tfac = kernel_twisted.twisted_factor_kernel(coeffs)
+        tx, ms = timed(lambda: kernel_twisted.twisted_solve_kernel(tfac, b), REPS)
+        tp, plain_ms = timed(lambda: twisted.twisted_solve(tfac, b), REPS)
+        log(f" K4b twisted sweeps at the data phase's shape, {ny}^2, "
+            f"{self.n_tx} RHS, forward, middle row {tfac.m}:")
+        self.record("twisted_sweep_401", tx, tp, ms, plain_ms, sweep_bound)
+        sweep_launch("K4b", kernel_twisted.last_sweep_launch, ny, nx, ms)
+        res = rel_err(apply.h_apply(coeffs, tx), b)
+        log(f"  true relative residual of the kernel solve: {res:.3e}")
+        if not res < 2e-5:
+            self.bad.append(f"twisted_sweep_401 residual {res:.3e} >= 2e-5")
 
     def pivot_inverse_alone(self, batch_of):
         """The pivot step of K1 / K4a without a profiler: the blocked

@@ -317,21 +317,65 @@ def test_twisted_factor_kernel_matches_plain(cuda, extent):
             kernel_twisted.twisted_factor_kernel(coeffs, bad)
 
 
+# K4b's cluster kernel, each of its three instantiations through shapes that
+# take it: 8 right-hand sides a cluster and 160 gemv rows a block (nx <=
+# 432) on ragged slices (31, 61), grids narrower than a cluster (6, 7 < 8
+# blocks), the main path's width 301 and the data's 401; 8 and 80 (433 <=
+# nx <= 624) at 501; 4 and 160 (nx >= 625) at 701. ny = 3 and 5, so that
+# every middle row of _twisted_middles is an edge case.
+TWISTED_SHAPES = [pytest.param(12e-3, id="31"), pytest.param(24e-3, id="61"),
+                  pytest.param(4e-3, id="6"),
+                  pytest.param((3, 7), id="3x7"),
+                  pytest.param((5, 301), id="5x301"),
+                  pytest.param((5, 401), id="5x401"),
+                  pytest.param((3, 501), id="3x501"),
+                  pytest.param((3, 701), id="3x701")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("adjoint", [False, True])
-def test_twisted_sweep_kernel_matches_plain(cuda, adjoint):
-    """K4b vs the plain twisted solve through the same factor, 9 RHS (a
-    ragged last group), every middle row of the factor test: rel < 1e-5;
-    true residual through the plain apply < 2e-5."""
-    coeffs = _planes(24e-3, cuda)
-    b = _fields(6, (9,) + tuple(coeffs.shape[1:]), cuda)
+@pytest.mark.parametrize("shape", TWISTED_SHAPES)
+def test_twisted_sweep_kernel_matches_plain(cuda, adjoint, shape):
+    """K4b vs the plain twisted solve through the same factor, batch 1, 9,
+    17 and 40 (ragged last groups), every middle row of the factor test:
+    rel < 1e-5; true residual through the plain apply < 2e-5; through the
+    instantiation its width selects."""
+    if isinstance(shape, tuple):
+        coeffs = _random_planes(11, *shape, cuda)
+    else:
+        coeffs = _planes(shape, cuda)
+    nx = coeffs.shape[2]
     op = apply.h_apply_adjoint if adjoint else apply.h_apply
     for m in _twisted_middles(coeffs.shape[1]):
         fac = twisted.twisted_factor(coeffs, m)
-        x = kernel_twisted.twisted_solve_kernel(fac, b, adjoint)
-        torch.cuda.synchronize()
-        assert _rel(x, twisted.twisted_solve(fac, b, adjoint)) < 1e-5, m
-        assert _rel(op(coeffs, x), b) < 2e-5, m
+        for batch in (1, 9, 17, 40):
+            b = _fields(6, (batch,) + tuple(coeffs.shape[1:]), cuda)
+            x = kernel_twisted.twisted_solve_kernel(fac, b, adjoint)
+            torch.cuda.synchronize()
+            p = kernel_twisted.last_sweep_launch
+            assert (p["rhs"], p["rows"]) == (
+                (8, 160) if nx <= 432 else (8, 80) if nx <= 624 else (4, 160))
+            assert _rel(x, twisted.twisted_solve(fac, b, adjoint)) < 1e-5, (m, batch)
+            assert _rel(op(coeffs, x), b) < 2e-5, (m, batch)
+
+
+@pytest.mark.cuda
+def test_twisted_sweep_kernel_launch(cuda):
+    """A 301-wide twisted solve of 256 right-hand sides (the main path's)
+    keeps the clusters of both chains, 2 x 256 / R, on the card at once: one
+    wave; a grid wider than 1264 raises."""
+    coeffs = _random_planes(3, 3, 301, cuda)
+    fac = twisted.twisted_factor(coeffs)
+    b = _fields(4, (256, 3, 301), cuda)
+    for adjoint in (False, True):
+        kernel_twisted.twisted_solve_kernel(fac, b, adjoint)
+        p = kernel_twisted.last_sweep_launch
+        assert p["clusters"] == 2 * 256 // p["rhs"], p
+        assert p["max_active_clusters"] >= p["clusters"], p
+    wide = _random_planes(3, 3, 1265, cuda)
+    with pytest.raises(RuntimeError, match="nx=1265"):
+        kernel_twisted.twisted_solve_kernel(
+            twisted.twisted_factor(wide), _fields(4, (1, 3, 1265), cuda))
 
 
 @pytest.mark.cuda

@@ -38,195 +38,65 @@
 // with the blocked inverse of gj_pivot.cuh and the one panel_update launch
 // (one run, NVIDIA H100 80GB HBM3, 700 W).
 //
-// Sweeps: as in sweep.cu a block owns kRhs right-hand sides and walks the
-// rows inside the block with its running vector in shared memory, streaming
-// the inverses through L2 (sweep_gemv.cuh). Here a block owns (RHS group,
-// chain): twisted_in walks both chains inward in one launch; twisted_out
-// forms the middle (in the blocks of both chains, redundantly: three gemvs
-// against ~150 per chain, and no third launch or grid barrier) and walks
-// both chains outward. kRhs = 4 makes 2 x 64 = 128 blocks at 256 right-hand
-// sides, one per SM (a 1024-thread block at 64 registers fills an SM), so
-// that both chains of every group run at once; with kRhs = 2 the 256 blocks
-// would run in two waves and the halved chain would buy nothing.
+// Sweeps: the row step of sweep.cu (csrc/sweep_cluster.cuh): a cluster of C
+// blocks owns R right-hand sides of one chain, block k a slice of ~nx / C
+// outputs of every gemv, G streamed from L2 through shared memory, the
+// running vector pushed into every peer's shared memory each step. The
+// bottom chain is the top chain's walk on the row-reversed system with L and
+// U exchanged. Two launches, each holding the clusters of both chains:
+//   in:  each chain eliminates from its end row towards m (m gemvs on the
+//        top, ny - 1 - m on the bottom) and leaves its last step's vector
+//        onto row m (b_m minus its term) in scratch beside z;
+//   out: every cluster forms r_m = (top's) + (bottom's) - b_m, takes
+//        x_m = G_m r_m (the top chain's clusters write it), then back
+//        substitutes away from m (m rows on the top, ny - 1 - m below).
+// A right-hand side thus takes 2 ny row steps in two chains of about ny / 2
+// + 1 steps a launch, where block-Thomas takes 2 ny - 1 in one chain.
+// Bound: operations, the 2 ny - 1 gemvs of nx x nx a right-hand side (the
+// middle's runs in both chains), 1.66 ms at the FP32 peak for 301^2 x 256. Residency decides the time: at 301^2 x 256
+// all 2 x 256 / R clusters must be on the card at once, or a second wave
+// doubles it. K2's R = 16 instantiation (56 gemv rows a block, C >= 6: 192
+// blocks) cannot; R = 8 with 160 rows a block (C = 2: 128 blocks) can, and
+// on the H100 (PERF.md) it does.
 
 #include "row_inverse.cuh"
-#include "sweep_gemv.cuh"
+#include "sweep_cluster.cuh"
 
 namespace {
 
-constexpr int kRhs = 4;
-
+// The instantiation is fixed by nx: 8 right-hand sides a cluster and 160
+// gemv rows a block up to nx = 432, where two copies of the running vector
+// still fit in shared memory (at 301: 2 x 32 clusters of 2 blocks); then
+// K2's: 8 and 80 up to 624, 4 and 160 up to 1264.
 template <bool kAdjoint>
-__device__ __forceinline__ void gemv(const float2* __restrict__ g,
-                                     const float2* src, float2* dst,
-                                     float2* part, int nx) {
-  if (kAdjoint) {
-    gemv_h<kRhs>(g, src, dst, part, nx);
-  } else {
-    gemv_n<kRhs>(g, src, dst, nx);
-    __syncthreads();
-  }
-}
-
-// tri(T_row) v (forward) or tri(T_row)^H v (adjoint) at column j, T the plane
-// triple L (upper == false) or U (upper == true).
-template <bool kAdjoint>
-__device__ __forceinline__ float2 triop(const Planes& P, bool upper, int row,
-                                        const float2* v, int j, int nx) {
-  const float2* m = P.at(upper ? 4 : 3, row);
-  const float2* s = P.at(upper ? 7 : 5, row);
-  const float2* p = P.at(upper ? 8 : 6, row);
-  return kAdjoint ? tri_h(m, s, p, v, j, nx) : tri(m, s, p, v, j, nx);
-}
-
-// Rows of the batch in shared memory <-> global (batch, ny, nx).
-__device__ __forceinline__ void load_row(float2* dst, const float2* src,
-                                         int r0, int row, int batch, int ny,
-                                         int nx) {
-  for (int e = threadIdx.x; e < kRhs * nx; e += blockDim.x) {
-    const int r = e / nx, j = e - r * nx;
-    dst[e] = (r0 + r < batch) ? src[vidx(r0 + r, row, j, ny, nx)]
-                              : make_float2(0.f, 0.f);
-  }
-}
-__device__ __forceinline__ void store_row(float2* dst, const float2* src,
-                                          int r0, int row, int batch, int ny,
-                                          int nx) {
-  for (int e = threadIdx.x; e < kRhs * nx; e += blockDim.x) {
-    const int r = e / nx, j = e - r * nx;
-    if (r0 + r < batch) dst[vidx(r0 + r, row, j, ny, nx)] = src[e];
-  }
-}
-
-// The step that carries a chain's running vector cv (at row y - d) onto row
-// y: out[e] = in[e] - tri(w), w = G_{y-d} cv (forward) or G_{y-d}^H cv. The
-// planes are L_y / U_y on the forward top / bottom chain and U_{y-1} /
-// L_{y+1} on the adjoint ones. ``in`` is b's row y in global memory (inward)
-// or rv in shared memory (the middle's second term).
-template <bool kAdjoint>
-__device__ __forceinline__ float2 inward_term(const Planes& P, int chain,
-                                              int y, int d, const float2* w,
-                                              int j, int nx) {
-  return kAdjoint ? triop<true>(P, chain == 0, y - d, w, j, nx)
-                  : triop<false>(P, chain == 1, y, w, j, nx);
-}
-
-// Inward elimination; blockIdx.y is the chain (0 top, downward; 1 bottom,
-// upward). Writes z_y (rows < m) and t_y (rows > m) into z.
-template <bool kAdjoint>
-__global__ void __launch_bounds__(kThreads)
-twisted_in(const float2* __restrict__ g, const float2* __restrict__ coeffs,
-           const float2* __restrict__ b, float2* z, int batch, int ny, int nx,
-           int m) {
-  extern __shared__ float2 smem[];
-  float2* cv = smem;              // running vector, kRhs x nx
-  float2* tv = smem + kRhs * nx;  // temporary, kRhs x nx
-  float2* part = tv + 2 * kRhs * nx;  // gemv_h partial sums (after rv)
-  const int r0 = blockIdx.x * kRhs;
-  const int chain = blockIdx.y;
-  const int d = chain ? -1 : 1;
-  const int start = chain ? ny - 1 : 0;
-  const Planes P{coeffs, (long long)ny * nx, nx};
-  const long long gstride = (long long)nx * nx;
-  const int n = kRhs * nx;
-
-  load_row(cv, b, r0, start, batch, ny, nx);
-  __syncthreads();
-  store_row(z, cv, r0, start, batch, ny, nx);
-  for (int y = start + d; y != m; y += d) {
-    gemv<kAdjoint>(g + (y - d) * gstride, cv, tv, part, nx);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int r = e / nx, j = e - r * nx;
-      const float2 bv = (r0 + r < batch) ? b[vidx(r0 + r, y, j, ny, nx)]
-                                         : make_float2(0.f, 0.f);
-      const float2 v = csub(bv, inward_term<kAdjoint>(P, chain, y, d,
-                                                      tv + r * nx, j, nx));
-      cv[e] = v;
-      if (r0 + r < batch) z[vidx(r0 + r, y, j, ny, nx)] = v;
-    }
-    __syncthreads();
-  }
-}
-
-// The middle, then outward substitution; blockIdx.y is the chain (0 top,
-// upward from m - 1; 1 bottom, downward from m + 1). The blocks of both
-// chains compute x_m; the top chain's write it.
-template <bool kAdjoint>
-__global__ void __launch_bounds__(kThreads)
-twisted_out(const float2* __restrict__ g, const float2* __restrict__ coeffs,
-            const float2* __restrict__ b, const float2* __restrict__ z,
-            float2* x, int batch, int ny, int nx, int m) {
-  extern __shared__ float2 smem[];
-  float2* cv = smem;
-  float2* tv = smem + kRhs * nx;
-  float2* rv = tv + kRhs * nx;    // the middle residual, kRhs x nx
-  float2* part = rv + kRhs * nx;
-  const int r0 = blockIdx.x * kRhs;
-  const int chain = blockIdx.y;
-  const Planes P{coeffs, (long long)ny * nx, nx};
-  const long long gstride = (long long)nx * nx;
-  const int n = kRhs * nx;
-
-  // r_m = b_m - (top chain's step onto row m) - (bottom chain's step onto it)
-  load_row(rv, b, r0, m, batch, ny, nx);
-  for (int c = 0; c < 2; ++c) {
-    const int d = c ? -1 : 1;
-    load_row(cv, z, r0, m - d, batch, ny, nx);
-    __syncthreads();
-    gemv<kAdjoint>(g + (m - d) * gstride, cv, tv, part, nx);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int r = e / nx, j = e - r * nx;
-      rv[e] = csub(rv[e], inward_term<kAdjoint>(P, c, m, d, tv + r * nx, j, nx));
-    }
-    __syncthreads();
-  }
-  gemv<kAdjoint>(g + m * gstride, rv, cv, part, nx);  // x_m = G_m r_m
-  if (chain == 0) store_row(x, cv, r0, m, batch, ny, nx);
-
-  // Outward, away from the middle: onto row y from row y - e.
-  //   forward: x_y = G_y (z_y - tri(U_y) x_{y+1})  /  B_y (t_y - tri(L_y) x_{y-1})
-  //   adjoint: x_y = G_y^H (z_y - tri(L_{y+1})^H x_{y+1})
-  //                  /  B_y^H (t_y - tri(U_{y-1})^H x_{y-1})
-  const int e_dir = chain ? 1 : -1;
-  for (int y = m + e_dir; y >= 0 && y < ny; y += e_dir) {
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int r = e / nx, j = e - r * nx;
-      const float2 zv = (r0 + r < batch) ? z[vidx(r0 + r, y, j, ny, nx)]
-                                         : make_float2(0.f, 0.f);
-      const float2 t = kAdjoint
-          ? triop<true>(P, chain == 1, y - e_dir, cv + r * nx, j, nx)
-          : triop<false>(P, chain == 0, y, cv + r * nx, j, nx);
-      tv[e] = csub(zv, t);
-    }
-    __syncthreads();
-    gemv<kAdjoint>(g + y * gstride, tv, cv, part, nx);
-    store_row(x, cv, r0, y, batch, ny, nx);
-  }
+int choose(int batch, int nx, Plan* p) {
+  int rc = plan<8, 10, 16, 3, kAdjoint>(batch, 2, nx, p);
+  if (rc < 0) rc = plan<8, 5, 32, 4, kAdjoint>(batch, 2, nx, p);
+  if (rc < 0) rc = plan<4, 10, 16, 3, kAdjoint>(batch, 2, nx, p);
+  return rc;
 }
 
 template <bool kAdjoint>
-int launch_sweeps(const float2* g, const float2* coeffs, const float2* b,
-                  float2* z, float2* x, int batch, int ny, int nx, int m,
-                  int* launched, cudaStream_t stream) {
-  const size_t smem = smem_floats2(nx, kRhs, 3) * sizeof(float2);
-  const dim3 grid((batch + kRhs - 1) / kRhs, 2);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute((const void*)twisted_in<kAdjoint>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute((const void*)twisted_out<kAdjoint>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  twisted_in<kAdjoint><<<grid, kThreads, smem, stream>>>(g, coeffs, b, z,
-                                                         batch, ny, nx, m);
-  if ((err = counted(launched)) != cudaSuccess) return (int)err;
-  twisted_out<kAdjoint><<<grid, kThreads, smem, stream>>>(g, coeffs, b, z, x,
-                                                          batch, ny, nx, m);
-  return (int)counted(launched);
+int sweeps(const float2* g, const float2* coeffs, const float2* b, float2* z,
+           float2* x, int batch, int ny, int nx, int m, int* out,
+           cudaStream_t stream) {
+  Plan p;
+  int rc = choose<kAdjoint>(batch, nx, &p);
+  if (rc != 0) return rc;
+  const int nb = ny - 1 - m;  // rows below the middle
+  Job in = {};
+  in.chain[0] = Walk{0, 1, m, m, 0, 0};
+  in.chain[1] = Walk{ny - 1, -1, nb, nb, 1, 0};
+  in.groups = p.clusters / 2;
+  in.mid_out = z + (long long)batch * ny * nx;
+  Job back = {};
+  back.chain[0] = Walk{m, 1, 0, m + 1, 0, 1};
+  back.chain[1] = Walk{m, -1, 0, nb + 1, 1, 0};
+  back.groups = in.groups;
+  back.mid_in = in.mid_out;
+  rc = launch(p, g, coeffs, b, z, x, batch, ny, nx, in, out, stream);
+  if (rc != 0) return rc;
+  return launch(p, g, coeffs, b, z, x, batch, ny, nx, back, out, stream);
 }
 
 }  // namespace
@@ -264,17 +134,21 @@ extern "C" int twisted_factor_g(const void* coeffs, void* g, void* scratch,
   return (int)err;
 }
 
-// b, x: (batch, ny, nx); z: (batch, ny, nx) scratch for the inward vectors.
-// *launched is raised by the number of kernels launched (2).
+// b, x: (batch, ny, nx); z: scratch of batch * ny * nx + 2 * batch * nx
+// complex64 (the inward vectors, then the two chains' vectors onto row m).
+// G 16-byte aligned. out[0] is raised by the number of kernels launched (2);
+// out[1..7] receive the launch as sweep_solve's do (clusters: both chains').
+// Returns 0, a cudaError_t, or -1 when no instantiation fits nx
+// (nx > 1264) or the card holds none of its clusters.
 extern "C" int twisted_sweep_solve(const void* g, const void* coeffs,
                                    const void* b, void* z, void* x, int batch,
                                    int ny, int nx, int m, int adjoint,
-                                   int* launched, void* stream) {
+                                   int* out, void* stream) {
   if (adjoint)
-    return launch_sweeps<true>((const float2*)g, (const float2*)coeffs,
-                               (const float2*)b, (float2*)z, (float2*)x, batch,
-                               ny, nx, m, launched, (cudaStream_t)stream);
-  return launch_sweeps<false>((const float2*)g, (const float2*)coeffs,
-                              (const float2*)b, (float2*)z, (float2*)x, batch,
-                              ny, nx, m, launched, (cudaStream_t)stream);
+    return sweeps<true>((const float2*)g, (const float2*)coeffs,
+                        (const float2*)b, (float2*)z, (float2*)x, batch, ny,
+                        nx, m, out, (cudaStream_t)stream);
+  return sweeps<false>((const float2*)g, (const float2*)coeffs,
+                       (const float2*)b, (float2*)z, (float2*)x, batch, ny,
+                       nx, m, out, (cudaStream_t)stream);
 }

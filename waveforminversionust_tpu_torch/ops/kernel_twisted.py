@@ -13,6 +13,11 @@ reference kernel's ``g_down`` / ``g_up`` block-step layout, its padding to a
 panel multiple and its refusal of ``m > ny - 1 - m`` follow from the TPU's
 block pipeline and are not carried over: these kernels take any middle row
 ``0 < m < ny - 1``, like the plain versions.
+
+The sweeps run the thread-block-cluster row step of the block-Thomas sweeps
+(``csrc/sweep_cluster.cuh``), one cluster per (group of right-hand sides,
+chain). They take grids up to nx = 1264 and raise above;
+:data:`last_sweep_launch` tells which configuration the last solve took.
 """
 
 from __future__ import annotations
@@ -23,11 +28,15 @@ import torch
 
 from . import _build
 from .kernel_factor import PANEL
+from .kernel_sweep import LAUNCH_KEYS, NO_FIT
 from .twisted import (TwistedFactor, check_middle_row, twisted_factor,
                       twisted_solve)
 
 factor_launches = 0  # kernel launches made through twisted_factor_kernel
 sweep_launches = 0   # kernel launches made through twisted_solve_kernel
+# The configuration of the last solve's two launches, under
+# kernel_sweep.LAUNCH_KEYS; "clusters" counts both chains' clusters.
+last_sweep_launch: dict = {}
 
 
 def _bind_factor():
@@ -80,7 +89,7 @@ def twisted_solve_kernel(factor: TwistedFactor, b: torch.Tensor,
     """Solve H x = b (or H^H x = b) through ``factor`` for b of shape
     (batch, ny, nx) complex64: one launch walks both chains inward, a
     second forms the middle and walks both outward."""
-    global sweep_launches
+    global sweep_launches, last_sweep_launch
     if b.device.type == "cpu":
         return twisted_solve(factor, b, adjoint=adjoint)
     g, coeffs, m = factor.g, factor.coeffs, factor.m
@@ -93,13 +102,21 @@ def twisted_solve_kernel(factor: TwistedFactor, b: torch.Tensor,
         if t.device != b.device or t.dtype != torch.complex64 or not t.is_contiguous():
             raise ValueError("twisted sweep kernel takes contiguous complex64 "
                              "tensors on one CUDA device")
-    z = torch.empty_like(b)
+    if g.data_ptr() % 16:
+        raise ValueError("twisted sweep kernel: g must be 16-byte aligned")
+    # the inward vectors (batch, ny, nx), then both chains' vectors onto
+    # the middle row (2, batch, nx)
+    z = torch.empty(batch * (ny + 2) * nx, dtype=b.dtype, device=b.device)
     x = torch.empty_like(b)
-    n = ctypes.c_int(0)
+    out = (ctypes.c_int * (1 + len(LAUNCH_KEYS)))()
     rc = _bind_sweep()(g.data_ptr(), coeffs.data_ptr(), b.data_ptr(),
                        z.data_ptr(), x.data_ptr(), batch, ny, nx, m,
-                       int(adjoint), ctypes.addressof(n),
+                       int(adjoint), ctypes.addressof(out),
                        _build.stream_handle(b.device))
-    sweep_launches += n.value
+    sweep_launches += out[0]
+    if rc == NO_FIT:
+        raise RuntimeError(f"twisted sweep kernel: no thread-block-cluster "
+                           f"configuration runs at nx={nx} on this card")
     _build.check(rc, "twisted sweep kernel")
+    last_sweep_launch = dict(zip(LAUNCH_KEYS, list(out)[1:]))
     return x
