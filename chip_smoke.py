@@ -13,8 +13,8 @@ Phases (any failure makes the exit code non-zero):
      the time of both, the least time the card could take (bound) and, where
      one PyTorch call computes the same function, that call's time; both
      sweeps (block-Thomas and twisted) also at the data phase's 401^2, and
-     their cluster launches; and the pivot step of the two factorizations launched alone
-     (us a launch);
+     their cluster launches; and the pivot step of the two factorizations
+     launched alone (us a launch);
   3. data: a 256-element ring dataset synthesized over a breast phantom on
      a 401^2 / 0.6 mm grid at 350 kHz (seed 0) through the kernels;
   4. the slices: 10 nonlinear-CG iterations at 301^2 / 0.8 mm, 256
