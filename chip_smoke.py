@@ -10,11 +10,16 @@ Phases (any failure makes the exit code non-zero):
      parallel) and its seconds;
   2. kernels: every kernel against its plain PyTorch version on the card, at
      its path's shapes, with its relative Frobenius error, max abs error,
-     the time of both, the least time the card could take (bound) and, where
-     one PyTorch call computes the same function, that call's time; both
+     the time of both (K3 and K5, kernels of tens of microseconds, in a CUDA
+     graph of launches, the others by CUDA events around calls from the
+     host), the least time the card could take (bound) and, where one
+     PyTorch call computes the same function, that call's time; both
      sweeps (block-Thomas and twisted) also at the data phase's 401^2, and
-     their cluster launches; and the pivot step of the two factorizations
-     launched alone (us a launch);
+     their cluster launches; K3's bytes and rate at both call sites and its
+     time by fields a thread block; K5 at every level's batch of the 301^2
+     cyclic factorization with both thread blocks it offers (us a launch,
+     cycles a step, bounds), and its total for one factorization; and the
+     pivot step of the two factorizations launched alone (us a launch);
   3. data: a 256-element ring dataset synthesized over a breast phantom on
      a 401^2 / 0.6 mm grid at 350 kHz (seed 0) through the kernels;
   4. the slices: 10 nonlinear-CG iterations at 301^2 / 0.8 mm, 256
@@ -28,7 +33,11 @@ Phases (any failure makes the exit code non-zero):
      plain PyTorch functions on the same CUDA tensors, held to the golden
      bounds;
   6. profile (only when asked for): torch.profiler over 2 iterations of each
-     engine, device time by kernel name and the idle share.
+     engine, device time by kernel name and the idle share;
+  7. digest (only when asked for): K5 and K3 through calls that every
+     version of the port takes, so that two trees' kernels can be compared
+     in one call: SHA-256 of their outputs on the paths' inputs, and their
+     times in CUDA graphs (K5 at every batch of a cyclic factorization).
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -97,6 +106,9 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 C64 = 8      # bytes of a complex64
 CMAC = 8     # real FP32 operations of a complex multiply-add
+SMS = 132    # streaming multiprocessors of an H100 SXM
+K5_WARPS = (8, 16)         # the thread blocks K5 offers (warps a matrix)
+K3_FIELDS = (4, 8, 16, 32)  # fields a thread block K3 is timed with
 
 
 def log(*a):
@@ -394,16 +406,25 @@ class Smoke:
                                  ).astype(np.complex64), device=dev)
             adj = apply.adjoint_coefficients(coeffs)
             # 9 complex multiply-adds per point; planes and u in, H u out.
-            stencil_bound = bound(9 * CMAC * u.numel(),
-                                  (coeffs.numel() + 2 * u.numel()) * C64)
+            nbytes = (coeffs.numel() + 2 * u.numel()) * C64
+            stencil_bound = bound(9 * CMAC * u.numel(), nbytes)
             for adjoint in (False, True):
                 planes = adj if adjoint else coeffs
-                ok_, ms = self.time_kernel("stencil", lambda: h_apply_kernel(planes, u))
+                ok_, _ = self.time_kernel("stencil", lambda: h_apply_kernel(planes, u))
+                ms = graph_timed(lambda: h_apply_kernel(planes, u), launches=20)
                 plain = apply.h_apply_adjoint if adjoint else apply.h_apply
                 op_, plain_ms = timed(lambda: plain(coeffs, u), REPS)
                 log(f" K3 apply, {label}, {gsize.ny}^2 x {batch}, "
                     f"adjoint={adjoint}:")
                 self.record(name, ok_, op_, ms, plain_ms, stencil_bound)
+                log(f"  {nbytes / 1e6:.1f} MB a launch (planes and u in, H u "
+                    f"out), {nbytes / ms / 1e9:.3f} TB/s")
+            if name == "stencil":
+                by_fields = {f: graph_timed(lambda: h_apply_kernel(coeffs, u, f),
+                                            launches=20)
+                             for f in K3_FIELDS}
+                log(f"  K3 forward by fields a thread block (the default 8): "
+                    f"{ {f: round(t, 4) for f, t in by_fields.items()} } ms")
 
         # K5 at the cyclic-reduction path's shape: the level-0 pivot blocks
         # of the 301^2 breast operator (the first 64 x 64 panel of every odd
@@ -428,8 +449,9 @@ class Smoke:
                  "batched_inv"),
                 ("seeded random batch", batch_of(5, 16), "batched_inv_16")):
             n, bsz = p.shape[0], p.shape[1]
-            out, ms = self.time_kernel("batched_inv",
-                                       lambda: batched_small_inv_kernel(p))
+            out, _ = self.time_kernel("batched_inv",
+                                      lambda: batched_small_inv_kernel(p))
+            ms = graph_timed(lambda: batched_small_inv_kernel(p))
             _, plain_ms = timed(lambda: batched_inv._batched_pivot_inv(p), REPS)
             lib, library_ms = timed(lambda: torch.linalg.inv(p), REPS)
             want = batched_inv._batched_pivot_inv(p.to(c128))
@@ -442,8 +464,41 @@ class Smoke:
                         library_ms)
 
         self.pivot_inverse_alone(batch_of)
-        self.cr_engine(c, b)
+        batches = self.cr_engine(c, b)
+        self.k5_by_level(level0, batches, -(-nx // block))
         self.check(not self.bad, f"kernel checks failed: {self.bad}")
+
+    def k5_by_level(self, level0, batches, panels):
+        """K5 at each batch the cyclic factorization inverts (one level's
+        odd rows, then the root), on the first n level-0 pivot blocks, with
+        each thread block it offers: us a launch (50 launches in one CUDA
+        graph), the cycles of a step at the card's largest SM clock, the
+        chip-wide bound and the floor of one SM (a matrix is one SM's chain:
+        64^3 complex multiply-adds at 1/132 of the FP32 peak, twice that where
+        two matrices share an SM); and the sum over one factorization
+        (``panels`` launches a level)."""
+        from waveforminversionust_tpu_torch.ops.kernel_inv import batched_small_inv_kernel
+
+        bsz = level0.shape[1]
+        mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+        one_sm = CMAC * bsz ** 3 / (PEAK_FP32 / SMS) * 1e6
+        total = dict.fromkeys(K5_WARPS, 0.0)
+        log(f" K5 by level of the {level0.shape[0] * 2 + 1}-row cyclic "
+            f"factorization, ({bsz}, {bsz}) blocks, {panels} launches a level:")
+        for n in batches:
+            p = level0[:n].contiguous()
+            line = f"  batch {n:3d}:"
+            for w in K5_WARPS:
+                us = graph_timed(lambda: batched_small_inv_kernel(p, w)) * 1e3
+                total[w] += panels * us
+                line += (f" {w} warps {us:.2f} us ({us * mhz / bsz:.0f} cycles "
+                         f"a step);")
+            chip = bound(n * CMAC * bsz ** 3, 2 * p.numel() * C64)[0] * 1e3
+            log(f"{line} bound {chip:.2f} us chip-wide, "
+                f"{-(-n // SMS) * one_sm:.2f} us on one SM")
+        log(f"  one factorization ({len(batches)} batches x {panels}): "
+            + ", ".join(f"{w} warps {t / 1e3:.3f} ms" for w, t in total.items())
+            + " (the first version: 2.2 ms in PR 9's profile)")
 
     def sweep_yardstick(self, fac, b):
         """K2's yardstick: the same 2 ny - 1 products with full reuse of G
@@ -520,9 +575,9 @@ class Smoke:
         """The pivot step of K1 / K4a without a profiler: the blocked
         inverse of csrc/gj_pivot.cuh launched on its own (inv.cu's second
         entry), one block as in K1 and two as in K4a, on a full panel and on
-        the ragged last panel of 301; K5's scalar chain, which that step ran
-        until the blocked inverse replaced it (36.8 us a launch inside
-        pivot_gj), beside it on the same blocks."""
+        the ragged last panel of 301; beside it K5 on the same blocks: the
+        scalar chain that step ran until the blocked inverse replaced it, in
+        its register-tile layout since."""
         import torch
         from waveforminversionust_tpu_torch.ops.kernel_inv import (
             batched_small_inv_kernel, pivot_inverse_kernel)
@@ -547,15 +602,18 @@ class Smoke:
         torch.bmm, outside any kernel): its times, and how exact its FP32
         solves are at this size: bare, after one refinement pass, with
         pivoted LU inverses in place of the Gauss-Jordan ones, and beside
-        the same code run in complex128."""
+        the same code run in complex128. Returns the batches of K5 one
+        factorization launches (a level's odd rows, then the root)."""
         import torch
         from waveforminversionust_tpu_torch.ops import apply, cyclic
 
         c128 = torch.complex128
         n_rhs, ny, nx = b.shape
         crf, factor_ms = timed(lambda: cyclic.cr_factor(c), 2)
+        batches = [lev.dinv.shape[0] for lev in crf.levels] + [1]
         log(f" cyclic reduction at {ny}x{nx}: factorization {factor_ms:.3f} "
-            f"ms, {len(crf.levels)} levels")
+            f"ms, {len(crf.levels)} levels; odd rows a level and the root: "
+            f"{batches}")
         for adjoint in (False, True):
             op = apply.h_apply_adjoint if adjoint else apply.h_apply
             x, ms = timed(lambda: cyclic.cr_solve(crf, b, adjoint), 2)
@@ -587,6 +645,7 @@ class Smoke:
             f"{[float(f'{e:.1e}') for e in by_level]}")
         if not res128 < 1e-9:
             self.bad.append(f"complex128 cr residual {res128:.3e}")
+        return batches
 
     # -- phase 3 --------------------------------------------------------
     def data(self):
@@ -815,8 +874,84 @@ class Smoke:
                     f"x{count:<6d} {key[:90]}")
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    # -- phase 7 --------------------------------------------------------
+    def digest(self):
+        """K5 and K3 through the wrappers' plain signatures, which every
+        version of the port takes, so that two trees can be compared in one
+        call: SHA-256 of K5's outputs on the level-0 pivot blocks of the
+        301^2 breast operator and on a seeded (150, 64, 64) batch, and of
+        K3's forward and adjoint applies to 256 seeded fields on it; K5's
+        time (a CUDA graph of 50 launches) at each batch one cyclic
+        factorization inverts, and their sum over it; K3's (a graph of 20)
+        at both call sites."""
+        import hashlib
+        import torch
+        from waveforminversionust_tpu_torch.config import SolverConfig
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
+        from waveforminversionust_tpu_torch.models.phantom import breast_phantom
+        from waveforminversionust_tpu_torch.ops import apply, cyclic
+        from waveforminversionust_tpu_torch.ops.kernel_inv import batched_small_inv_kernel
+        from waveforminversionust_tpu_torch.ops.kernel_stencil import h_apply_kernel
+        from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
+
+        dev, cfg, grid = self.device, SolverConfig(), self.grid
+        rng = np.random.default_rng(0)
+
+        def planes(g):
+            return helmholtz_coefficients(torch.as_tensor(breast_phantom(g), device=dev),
+                                          g, 350e3, cfg.pml, cfg.stencil)
+
+        def fields(shape):
+            return torch.as_tensor((rng.standard_normal(shape)
+                                    + 1j * rng.standard_normal(shape)
+                                    ).astype(np.complex64), device=dev)
+
+        c = planes(grid)
+        odd = slice(1, None, 2)
+        level0 = cyclic._btri_dense(c[0, odd], c[1, odd], c[2, odd]
+                                    )[:, :64, :64].contiguous()
+        a = (rng.standard_normal((150, 64, 64))
+             + 1j * rng.standard_normal((150, 64, 64))) / 8 + 2 * np.eye(64)
+        seeded = torch.as_tensor(a.astype(np.complex64), device=dev)
+        u = fields((self.n_tx,) + grid.shape)
+        adj = apply.adjoint_coefficients(c)
+        for label, fn in (
+                ("K5 level-0 pivot blocks", lambda: batched_small_inv_kernel(level0)),
+                ("K5 seeded batch", lambda: batched_small_inv_kernel(seeded)),
+                ("K3 forward", lambda: h_apply_kernel(c, u)),
+                ("K3 adjoint", lambda: h_apply_kernel(adj, u))):
+            out = fn().cpu().numpy()
+            log(f" digest {label} {out.shape}: "
+                f"{hashlib.sha256(out.tobytes()).hexdigest()}")
+
+        crf = cyclic.cr_factor(c)
+        batches = [lev.dinv.shape[0] for lev in crf.levels] + [1]
+        del crf
+        panels = -(-grid.nx // 64)
+        times = {}
+        for n in sorted(set(batches), reverse=True):
+            p = level0[:n].contiguous()
+            times[n] = graph_timed(lambda: batched_small_inv_kernel(p)) * 1e3
+        log(f" K5 us a launch by batch: { {n: round(t, 2) for n, t in times.items()} }; "
+            f"one factorization ({batches} x {panels} panels): "
+            f"{sum(panels * times[n] for n in batches) / 1e3:.3f} ms")
+        for label, g, batch in (("301^2 x 256", grid, self.n_tx),
+                                ("801^2 x 4",
+                                 Grid2D.centered(0.4e-3 * (BIG - 1), 0.8e-3), 4)):
+            cg = c if g is grid else planes(g)
+            ug = u if g is grid else fields((batch,) + g.shape)
+            ag = adj if g is grid else apply.adjoint_coefficients(cg)
+            nbytes = (cg.numel() + 2 * ug.numel()) * C64
+            fwd = graph_timed(lambda: h_apply_kernel(cg, ug), launches=20)
+            bwd = graph_timed(lambda: h_apply_kernel(ag, ug), launches=20)
+            log(f" K3 {label}: forward {fwd:.4f} ms, adjoint {bwd:.4f} ms, "
+                f"mean {(fwd + bwd) / 2:.4f} ms, "
+                f"{nbytes / ((fwd + bwd) / 2) / 1e9:.3f} TB/s")
+
+
+def nvidia_smi(query="name,power.limit") -> str:
+    """The first card's ``nvidia-smi --query-gpu`` line for ``query``."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
@@ -830,7 +965,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,data,slice,slice_twisted,slice_cr,parity",
                     help="comma-separated subset of kernels,data,slice,"
-                         "slice_twisted,slice_cr,parity,profile")
+                         "slice_twisted,slice_cr,parity,profile,digest")
     args = ap.parse_args(argv)
 
     import torch
@@ -842,7 +977,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     smoke = Smoke(dev)
-    smi = nvidia_smi_line()
+    smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
@@ -860,11 +995,13 @@ def main(argv=None) -> int:
         phases = args.phases.split(",")
         if "kernels" in phases:
             smoke.phase("kernels", smoke.kernels_vs_plain)
-        if set(phases) - {"kernels"}:
+        if set(phases) & set(SLICES + ("data", "parity", "profile")):
             smoke.phase("data", smoke.data)
         for name in SLICES + ("parity", "profile"):
             if name in phases and "data" not in smoke.failures:
                 smoke.phase(name, getattr(smoke, name))
+        if "digest" in phases:
+            smoke.phase("digest", smoke.digest)
 
     rows = []
     for name, meta in KERNELS.items():

@@ -115,6 +115,33 @@ def test_apply_and_adjoint_apply_match(jax_planes):
                 apply.h_apply_adjoint(ct, ut).numpy()) < 1e-6
 
 
+@pytest.mark.parametrize("site", ["whole", "tiled"])
+def test_stencil_kernel_wrapper_matches_pallas(site):
+    """The port's stencil wrapper on CPU tensors (its plain path) == the
+    JAX package's Pallas apply in interpret mode, at the whole-field call
+    site (h_apply_pallas_cpx) and the y-tiled one (h_apply_tiled_cpx, tile
+    8: 24 rows are three tiles), forward and, through each side's adjoint
+    planes, adjoint: rel 1e-6, on seeded 24 x 20 planes and 3 fields."""
+    from waveforminversionust_tpu.ops.pallas_stencil import (h_apply_pallas_cpx,
+                                                             h_apply_tiled_cpx)
+    from waveforminversionust_tpu_torch.ops import kernel_stencil
+
+    def pallas(c, u):
+        if site == "whole":
+            return h_apply_pallas_cpx(c, u, interpret=True)
+        return h_apply_tiled_cpx(c, u, interpret=True, tile=8)
+
+    planes = _random_fields(11, (9, 24, 20))
+    u = _random_fields(12, (3, 24, 20))
+    jp, ct, ut = cpx.of(planes), _to_t(planes), _to_t(u)
+    for jplanes, tplanes in ((jp, ct),
+                             (adjoint_coefficients_cpx(jp),
+                              apply.adjoint_coefficients(ct))):
+        ref = cpx.to_numpy(pallas(jplanes, cpx.of(u)))
+        out = kernel_stencil.h_apply_kernel(tplanes, ut)
+        assert _rel(out.numpy(), ref) < 1e-6
+
+
 def test_plain_factor_matches(jax_planes):
     """Plain block-Thomas G == split_engine.banded_factor_cpx on the 61x61
     grid (nx not a panel multiple): rel < 5e-6 (tests/test_pallas_factor.py)."""

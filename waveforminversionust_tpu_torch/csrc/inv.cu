@@ -7,117 +7,197 @@
 //   (_gj_kernel),
 // which carried the batch in the 128 lanes (padded with identities, b a
 // multiple of 8) so that every rank-1 update was a full-width vector op.
-// That layout is not carried over. Here one thread block of 32 warps owns one
-// matrix, held in its threads' registers (thread (ty, tx) keeps
-// P[ty + 32 a][tx + 32 c], a, c < 2), identity-padded to 64 x 64 so that no
-// element needs a mask, and runs a b-step scalar chain: pivot row and column
-// j go through shared memory, double-buffered so that each step needs one
-// barrier; each step applies the general update P -= s rv to every element
-// and then overwrites row j and column j with directly computed values
-// (R p^-1, -C p^-1, p^-1; the reciprocal of |p|^2, clamped at 1e-38, by
-// __frcp_rn), because the single rank-1 form cancels in FP32 on the
-// Dirichlet rows. The grid is the batch, any B and any b <= 64.
+// That layout is not carried over.
 //
-// Bound: neither bytes (each matrix is read and written once, 64 KB) nor
-// operations (8 b^3 FP32 flops a matrix), but the chain's latency: b
-// dependent steps of a barrier, two shared-memory broadcasts and a
-// reciprocal, 0.64 us a step. Two 1024-thread blocks of 32 registers fit an
-// SM, so 150 matrices are resident at once, two to an SM on some.
+// The kernel keeps the chain's per-element arithmetic, bit for bit; the
+// layout is free. Each of the b steps applies the general update
+// P -= s rv, s = C / p, to every element and then overwrites row j and column
+// j with directly computed values (R p^-1, -C p^-1, p^-1; the reciprocal of
+// |p|^2, clamped at 1e-38, by __frcp_rn), because the single rank-1 form
+// cancels in FP32 on the Dirichlet rows. The roundings are those nvcc chose
+// for the first version of this kernel (a block of 32 warps, 2 x 2 elements a
+// thread, column and row j through shared memory, 37-41 us a 64 x 64 launch),
+// pinned with __fmaf_rn / __fmul_rn, so the outputs are its bits. That
+// matters: the unpivoted cyclic reduction amplifies the last bits of these
+// inverses by up to 1e4 at 301^2, and the blocked inverse of gj_pivot.cuh,
+// which rounds otherwise, moved that engine's residual after a refinement
+// pass from 6.3e-4 to 2.6e-3 (NVIDIA H100 80GB HBM3, 700 W).
 //
-// The factorizations' pivot step ran this chain too, until it got the
-// blocked inverse of gj_pivot.cuh, which takes half the time for one matrix
-// (19.9 against 40.8 us at 64 x 64, NVIDIA H100 80GB HBM3, 700 W). This
-// kernel keeps the chain: the unpivoted cyclic reduction it serves amplifies
-// the last bits of these inverses by up to 1e4 at 301^2, so a change of
-// rounding moves that engine's residual by a factor (6.3e-4 to 2.6e-3 after a
-// refinement pass with a blocked inverse here), and the inverse is 4.5% of
-// that engine's time. blocked_small_inv below launches the blocked inverse
-// on the same kind of batch, for tests and timings of the pivot step alone.
+// The layout: one block of W = 8 warps (or 16) a matrix, identity-padded to
+// 64 x 64 so that no element needs a mask, in registers; each thread a 4 x 4
+// tile (4 x 2 with 16 warps). A step reads column j (4 values), row j (4) and
+// 1 / the pivot from shared memory, double-buffered by the parity of j; the
+// threads holding column j + 1, row j + 1 and the next pivot write them after
+// their update; one block barrier a step. A tile serves 16 elements with 4
+// column values, 4 row values and 4 multipliers s, where the first version
+// read 2 + 2 for 4 elements and had a thread per 4 elements: the shared-
+// memory traffic of a step falls from 4 loads of 32 warps to 5 of 8 warps.
+//
+// Bound: neither bytes (each matrix is read and written once, 64 KB) nor the
+// card's operations (8 b^3 FP32 flops a matrix), but one SM's time for a
+// chain of b dependent steps. The pinned update is 6 FP32 instructions an
+// element (a product, a fused multiply-add and a difference for each half),
+// 4096 x 6 / 32 = 768 warp instructions a step; around it each step loads
+// column j, row j and the pivot after a barrier, forms the multipliers,
+// stores column and row j + 1 and the next reciprocal, and waits at the
+// barrier, and that costs more than the update (chip_smoke.py prints about
+// 1000 cycles a step). Publishing row and column j + 1 before the rest of
+// the update, behind split arrive / wait barriers, did not shorten a step;
+// splitting a matrix over a thread-block cluster would pay a cluster
+// barrier a step, which costs about as much as a whole step on one SM.
+// With a batch above the 132 SMs two matrices share an SM.
+// Any b <= 64 and any batch; the grid is the batch.
+//
+// blocked_small_inv below launches the blocked inverse of gj_pivot.cuh on
+// the same kind of batch, for tests and timings of the factorizations' pivot
+// step alone.
 
 #include "gj_pivot.cuh"
 
 namespace {
 
-constexpr int kChainWarps = 32;  // the chain's block: 32 warps,
-constexpr int kChainThreads = 32 * kChainWarps;
-constexpr int kChainRows = kBk / kChainWarps;  // each thread kChainRows x 2 elements
-
-// P <- the b x b block at src (leading dimension ld), identity-padded.
-__device__ __forceinline__ void chain_load(float2 (&P)[kChainRows][2],
-                                           const float2* __restrict__ src,
-                                           int ld, int b) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int a = 0; a < kChainRows; ++a)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int r = ty + kChainWarps * a, cc = tx + 32 * c;
-      P[a][c] = (r < b && cc < b) ? src[(long long)r * ld + cc]
-                                  : make_float2(r == cc ? 1.f : 0.f, 0.f);
-    }
+// The first version's roundings, which nvcc chose per expression there and
+// which are pinned here so that the outputs are its bits. An element's
+// update is P - s rv, each half a rounded product, a fused multiply-add and a
+// difference:
+__device__ __forceinline__ float2 gj_update(float2 P, float2 s, float2 rv) {
+  const float tx = __fmaf_rn(s.x, rv.x, -__fmul_rn(s.y, rv.y));
+  const float ty = __fmaf_rn(s.x, rv.y, __fmul_rn(s.y, rv.x));
+  return make_float2(__fsub_rn(P.x, tx), __fsub_rn(P.y, ty));
+}
+// p rv, the pivot row's direct values.
+__device__ __forceinline__ float2 gj_row(float2 p, float2 rv) {
+  return make_float2(__fmaf_rn(p.x, rv.x, -__fmul_rn(p.y, rv.y)),
+                     __fmaf_rn(p.x, rv.y, __fmul_rn(p.y, rv.x)));
+}
+// s = cj p, the column's multiplier. Its imaginary part fused the other
+// product on rows 32 .. 63 of the first version (its second register row),
+// so the rows of a warp (all on one side of row 32) say which.
+__device__ __forceinline__ float2 gj_col(float2 cj, float2 p, bool low) {
+  const float sx = __fmaf_rn(p.x, cj.x, -__fmul_rn(p.y, cj.y));
+  const float sy = low ? __fmaf_rn(p.x, cj.y, __fmul_rn(cj.x, p.y))
+                       : __fmaf_rn(p.y, cj.x, __fmul_rn(p.x, cj.y));
+  return make_float2(sx, sy);
+}
+// 1 / piv: the reciprocal of |piv|^2, clamped at 1e-38, correctly rounded.
+__device__ __forceinline__ float2 gj_pivot(float2 piv) {
+  const float inv =
+      __frcp_rn(fmaxf(__fmaf_rn(piv.x, piv.x, __fmul_rn(piv.y, piv.y)), 1e-38f));
+  return make_float2(__fmul_rn(piv.x, inv), -__fmul_rn(piv.y, inv));
 }
 
-__device__ __forceinline__ void chain_store(const float2 (&P)[kChainRows][2],
-                                            float2* __restrict__ dst, int ld,
-                                            int b) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+// Tiles of 4 x TC: lane l of warp w holds rows r0 = 4 (TRW w + l / LT) ..
+// r0 + 3 and columns c0 = TC (l % LT) .. c0 + TC - 1, LT = 64 / TC lanes a
+// tile row, TRW = 32 / LT tile rows a warp; W warps a matrix.
+template <int TC>
+struct Tiles {
+  static constexpr int LT = kBk / TC, TRW = 32 / LT, W = kBk / 4 / TRW;
+  static constexpr int kThreads = 32 * W;
+};
+
+// What step j reads, written during step j - 1, by the parity of j.
+struct GjBuf {
+  float2 col[2][kBk];  // column j as it enters step j
+  float2 row[2][kBk];  // row j
+  float2 piv[2];       // 1 / its pivot
+};
+
+// Step j, j % 4 == KJ (so column j is element KJ % TC of the threads that
+// hold it, row j row KJ of theirs); LOW: the warp's rows lie in 0 .. 31.
+template <int TC, int KJ, bool LOW>
+__device__ __forceinline__ void gj_step(float2 (&P)[4][TC], int j, int b,
+                                        int r0, int c0, GjBuf& s) {
+  constexpr int KC = KJ % TC;
+  const int in = j & 1;
+  const float2 p = s.piv[in];
+  float2 cj[4], rv[TC];
 #pragma unroll
-  for (int a = 0; a < kChainRows; ++a)
+  for (int i = 0; i < 4; ++i) cj[i] = s.col[in][r0 + i];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int r = ty + kChainWarps * a, cc = tx + 32 * c;
-      if (r < b && cc < b) dst[(long long)r * ld + cc] = P[a][c];
+  for (int k = 0; k < TC; ++k) rv[k] = s.row[in][c0 + k];
+  const bool colj = j - c0 == KC;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 si = gj_col(cj[i], p, LOW);
+#pragma unroll
+    for (int k = 0; k < TC; ++k) P[i][k] = gj_update(P[i][k], si, rv[k]);
+    if (colj) P[i][KC] = make_float2(-si.x, -si.y);
+  }
+  if (j - r0 == KJ) {  // row j: p rv, and p on the pivot
+#pragma unroll
+    for (int k = 0; k < TC; ++k) P[KJ][k] = gj_row(p, rv[k]);
+    if (colj) P[KJ][KC] = p;
+  }
+  const int n = j + 1;  // column n is element NC, row n row NI of their holders
+  constexpr int NI = (KJ + 1) % 4, NC = (KJ + 1) % TC;
+  if (n < b) {
+    const bool coln = n - c0 == NC;
+    if (coln) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s.col[in ^ 1][r0 + i] = P[i][NC];
     }
+    if (n - r0 == NI) {
+#pragma unroll
+      for (int k = 0; k < TC; ++k) s.row[in ^ 1][c0 + k] = P[NI][k];
+      if (coln) s.piv[in ^ 1] = gj_pivot(P[NI][NC]);
+    }
+  }
+  __syncthreads();
 }
 
-// P <- P^-1 in b steps; rowj and colj are shared [2][kBk] buffers.
-__device__ __forceinline__ void chain_invert(float2 (&P)[kChainRows][2],
-                                             float2 (*rowj)[kBk],
-                                             float2 (*colj)[kBk], int b) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+template <int TC, bool LOW>
+__device__ __forceinline__ void gj_steps(float2 (&P)[4][TC], int b, int r0,
+                                         int c0, GjBuf& s) {
   for (int j = 0; j < b; ++j) {
-    float2* rj = rowj[j & 1];
-    float2* cj = colj[j & 1];
-#pragma unroll
-    for (int a = 0; a < kChainRows; ++a) {
-      if (ty + kChainWarps * a == j) {  // warp-uniform: this warp holds row j
-        rj[tx] = P[a][0];
-        rj[tx + 32] = P[a][1];
-      }
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        if (tx + 32 * c == j) cj[ty + kChainWarps * a] = P[a][c];
-    }
-    __syncthreads();
-    const float2 piv = rj[j];
-    const float inv = __frcp_rn(fmaxf(piv.x * piv.x + piv.y * piv.y, 1e-38f));
-    const float2 p = make_float2(piv.x * inv, -piv.y * inv);  // 1 / piv
-    const float2 rv[2] = {rj[tx], rj[tx + 32]};
-#pragma unroll
-    for (int a = 0; a < kChainRows; ++a) {
-      const float2 s = cmul(cj[ty + kChainWarps * a], p);  // column j / piv
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float2 v = csub(P[a][c], cmul(s, rv[c]));
-        P[a][c] = (tx + 32 * c == j) ? make_float2(-s.x, -s.y) : v;
-      }
-      if (ty + kChainWarps * a == j) {  // row j: p * rv, and p on the pivot
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          P[a][c] = (tx + 32 * c == j) ? p : cmul(p, rv[c]);
-      }
+    switch (j & 3) {
+      case 0: gj_step<TC, 0, LOW>(P, j, b, r0, c0, s); break;
+      case 1: gj_step<TC, 1, LOW>(P, j, b, r0, c0, s); break;
+      case 2: gj_step<TC, 2, LOW>(P, j, b, r0, c0, s); break;
+      case 3: gj_step<TC, 3, LOW>(P, j, b, r0, c0, s); break;
     }
   }
 }
 
-__global__ void __launch_bounds__(kChainThreads)
-batched_gj(const float2* __restrict__ p, float2* __restrict__ out, int b) {
-  __shared__ float2 rowj[2][kBk], colj[2][kBk];
+template <int TC>
+__global__ void __launch_bounds__(Tiles<TC>::kThreads)
+batched_gj(const float2* __restrict__ src, float2* __restrict__ dst, int b) {
+  using T = Tiles<TC>;
+  __shared__ __align__(16) GjBuf s;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r0 = 4 * (T::TRW * w + lane / T::LT), c0 = TC * (lane % T::LT);
   const long long off = (long long)blockIdx.x * b * b;
-  float2 P[kChainRows][2];
-  chain_load(P, p + off, b, b);
-  chain_invert(P, rowj, colj, b);
-  chain_store(P, out + off, b, b);
+
+  float2 P[4][TC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < TC; ++k) {
+      const int r = r0 + i, c = c0 + k;
+      P[i][k] = (r < b && c < b) ? src[off + (long long)r * b + c]
+                                 : make_float2(r == c ? 1.f : 0.f, 0.f);
+    }
+  if (c0 == 0) {  // column 0, row 0 and its pivot
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s.col[0][r0 + i] = P[i][0];
+  }
+  if (r0 == 0) {
+#pragma unroll
+    for (int k = 0; k < TC; ++k) s.row[0][c0 + k] = P[0][k];
+    if (c0 == 0) s.piv[0] = gj_pivot(P[0][0]);
+  }
+  __syncthreads();
+  if (r0 < 32)  // warp-uniform: a warp's rows lie on one side of row 32
+    gj_steps<TC, true>(P, b, r0, c0, s);
+  else
+    gj_steps<TC, false>(P, b, r0, c0, s);
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < TC; ++k) {
+      const int r = r0 + i, c = c0 + k;
+      if (r < b && c < b) dst[off + (long long)r * b + c] = P[i][k];
+    }
 }
 
 // The blocked inverse of gj_pivot.cuh, one block per matrix.
@@ -133,13 +213,20 @@ blocked_gj(const float2* __restrict__ p, float2* __restrict__ out, int b) {
 
 }  // namespace
 
-// p, out: (batch, b, b) complex64, b <= 64. *launched is raised by the
-// number of kernels launched (1).
+// p, out: (batch, b, b) complex64, b <= 64; warps: 8 (4 x 4 tiles), 16 (4 x 2)
+// or 0 for 8. *launched is raised by the number of kernels launched (1).
 extern "C" int batched_small_inv(const void* p, void* out, int batch, int b,
-                                 int* launched, void* stream) {
+                                 int warps, int* launched, void* stream) {
   if (b < 1 || b > kBk) return (int)cudaErrorInvalidValue;
-  batched_gj<<<batch, kChainThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)p, (float2*)out, b);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (warps == 0 || warps == Tiles<4>::W)
+    batched_gj<4><<<batch, Tiles<4>::kThreads, 0, s>>>((const float2*)p,
+                                                       (float2*)out, b);
+  else if (warps == Tiles<2>::W)
+    batched_gj<2><<<batch, Tiles<2>::kThreads, 0, s>>>((const float2*)p,
+                                                       (float2*)out, b);
+  else
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return (int)err;
