@@ -498,7 +498,7 @@ class Smoke:
                 f"{-(-n // SMS) * one_sm:.2f} us on one SM")
         log(f"  one factorization ({len(batches)} batches x {panels}): "
             + ", ".join(f"{w} warps {t / 1e3:.3f} ms" for w, t in total.items())
-            + " (the first version: 2.2 ms in PR 9's profile)")
+            + " (the first version: 2.2 ms, PERF.md §5)")
 
     def sweep_yardstick(self, fac, b):
         """K2's yardstick: the same 2 ny - 1 products with full reuse of G
