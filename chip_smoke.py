@@ -15,11 +15,12 @@ Phases (any failure makes the exit code non-zero):
      host), the least time the card could take (bound) and, where one
      PyTorch call computes the same function, that call's time; both
      sweeps (block-Thomas and twisted) also at the data phase's 401^2, and
-     their cluster launches; K3's bytes and rate at both call sites and its
-     time by fields a thread block; K5 at every level's batch of the 301^2
-     cyclic factorization with both thread blocks it offers (us a launch,
-     cycles a step, bounds), and its total for one factorization; and the
-     pivot step of the two factorizations launched alone (us a launch);
+     their cluster launches; K3's bytes and rate at both call sites; K5 at
+     every level's batch of the 301^2 cyclic factorization (us a launch,
+     cycles a step, bounds) and its total for one factorization; the SHA-256
+     of K3's and K5's outputs, so that the same script run against two
+     trees compares their kernels' bits; and the pivot step of the two
+     factorizations launched alone (us a launch);
   3. data: a 256-element ring dataset synthesized over a breast phantom on
      a 401^2 / 0.6 mm grid at 350 kHz (seed 0) through the kernels;
   4. the slices: 10 nonlinear-CG iterations at 301^2 / 0.8 mm, 256
@@ -33,11 +34,7 @@ Phases (any failure makes the exit code non-zero):
      plain PyTorch functions on the same CUDA tensors, held to the golden
      bounds;
   6. profile (only when asked for): torch.profiler over 2 iterations of each
-     engine, device time by kernel name and the idle share;
-  7. digest (only when asked for): K5 and K3 through calls that every
-     version of the port takes, so that two trees' kernels can be compared
-     in one call: SHA-256 of their outputs on the paths' inputs, and their
-     times in CUDA graphs (K5 at every batch of a cyclic factorization).
+     engine, device time by kernel name and the idle share.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -48,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import subprocess
 import sys
@@ -107,12 +105,15 @@ PEAK_BYTES = 3.35e12
 C64 = 8      # bytes of a complex64
 CMAC = 8     # real FP32 operations of a complex multiply-add
 SMS = 132    # streaming multiprocessors of an H100 SXM
-K5_WARPS = (8, 16)         # the thread blocks K5 offers (warps a matrix)
-K3_FIELDS = (4, 8, 16, 32)  # fields a thread block K3 is timed with
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def sha256(t) -> str:
+    """SHA-256 of a tensor's bytes, to compare two trees' outputs."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
 
 
 def rel_err(a, b):
@@ -408,23 +409,22 @@ class Smoke:
             # 9 complex multiply-adds per point; planes and u in, H u out.
             nbytes = (coeffs.numel() + 2 * u.numel()) * C64
             stencil_bound = bound(9 * CMAC * u.numel(), nbytes)
+            both = []
             for adjoint in (False, True):
                 planes = adj if adjoint else coeffs
                 ok_, _ = self.time_kernel("stencil", lambda: h_apply_kernel(planes, u))
                 ms = graph_timed(lambda: h_apply_kernel(planes, u), launches=20)
+                both.append(ms)
                 plain = apply.h_apply_adjoint if adjoint else apply.h_apply
                 op_, plain_ms = timed(lambda: plain(coeffs, u), REPS)
                 log(f" K3 apply, {label}, {gsize.ny}^2 x {batch}, "
-                    f"adjoint={adjoint}:")
+                    f"adjoint={adjoint}; sha256 {sha256(ok_)}:")
                 self.record(name, ok_, op_, ms, plain_ms, stencil_bound)
                 log(f"  {nbytes / 1e6:.1f} MB a launch (planes and u in, H u "
                     f"out), {nbytes / ms / 1e9:.3f} TB/s")
-            if name == "stencil":
-                by_fields = {f: graph_timed(lambda: h_apply_kernel(coeffs, u, f),
-                                            launches=20)
-                             for f in K3_FIELDS}
-                log(f"  K3 forward by fields a thread block (the default 8): "
-                    f"{ {f: round(t, 4) for f, t in by_fields.items()} } ms")
+            mean = sum(both) / 2
+            log(f" K3 {label}: mean of forward and adjoint {mean:.4f} ms, "
+                f"{nbytes / mean / 1e9:.3f} TB/s")
 
         # K5 at the cyclic-reduction path's shape: the level-0 pivot blocks
         # of the 301^2 breast operator (the first 64 x 64 panel of every odd
@@ -456,7 +456,7 @@ class Smoke:
             lib, library_ms = timed(lambda: torch.linalg.inv(p), REPS)
             want = batched_inv._batched_pivot_inv(p.to(c128))
             log(f" K5 batched inverse, {label}, ({n}, {bsz}, {bsz}); "
-                f"torch.linalg.inv vs complex128 plain "
+                f"sha256 {sha256(out)}; torch.linalg.inv vs complex128 plain "
                 f"{rel_err(lib.to(c128), want):.3e}; kernel vs complex128 plain:")
             # b^3 complex multiply-adds a matrix; the batch in, its inverse out.
             self.record(name, out.to(c128), want, ms, plain_ms,
@@ -470,35 +470,30 @@ class Smoke:
 
     def k5_by_level(self, level0, batches, panels):
         """K5 at each batch the cyclic factorization inverts (one level's
-        odd rows, then the root), on the first n level-0 pivot blocks, with
-        each thread block it offers: us a launch (50 launches in one CUDA
-        graph), the cycles of a step at the card's largest SM clock, the
-        chip-wide bound and the floor of one SM (a matrix is one SM's chain:
-        64^3 complex multiply-adds at 1/132 of the FP32 peak, twice that where
-        two matrices share an SM); and the sum over one factorization
-        (``panels`` launches a level)."""
+        odd rows, then the root), on the first n level-0 pivot blocks: us a
+        launch (50 launches in one CUDA graph), the cycles of a step at the
+        card's largest SM clock, the chip-wide bound and the floor of one SM
+        (a matrix is one SM's chain: 64^3 complex multiply-adds at 1/132 of
+        the FP32 peak, twice that where two matrices share an SM); and the
+        sum over one factorization (``panels`` launches a level)."""
         from waveforminversionust_tpu_torch.ops.kernel_inv import batched_small_inv_kernel
 
         bsz = level0.shape[1]
         mhz = float(nvidia_smi("clocks.max.sm").split()[0])
         one_sm = CMAC * bsz ** 3 / (PEAK_FP32 / SMS) * 1e6
-        total = dict.fromkeys(K5_WARPS, 0.0)
+        total = 0.0
         log(f" K5 by level of the {level0.shape[0] * 2 + 1}-row cyclic "
             f"factorization, ({bsz}, {bsz}) blocks, {panels} launches a level:")
         for n in batches:
             p = level0[:n].contiguous()
-            line = f"  batch {n:3d}:"
-            for w in K5_WARPS:
-                us = graph_timed(lambda: batched_small_inv_kernel(p, w)) * 1e3
-                total[w] += panels * us
-                line += (f" {w} warps {us:.2f} us ({us * mhz / bsz:.0f} cycles "
-                         f"a step);")
+            us = graph_timed(lambda: batched_small_inv_kernel(p)) * 1e3
+            total += panels * us
             chip = bound(n * CMAC * bsz ** 3, 2 * p.numel() * C64)[0] * 1e3
-            log(f"{line} bound {chip:.2f} us chip-wide, "
+            log(f"  batch {n:3d}: {us:.2f} us ({us * mhz / bsz:.0f} cycles a "
+                f"step); bound {chip:.2f} us chip-wide, "
                 f"{-(-n // SMS) * one_sm:.2f} us on one SM")
         log(f"  one factorization ({len(batches)} batches x {panels}): "
-            + ", ".join(f"{w} warps {t / 1e3:.3f} ms" for w, t in total.items())
-            + " (the first version: 2.2 ms, PERF.md §5)")
+            f"{total / 1e3:.3f} ms (the first version: 2.2 ms, PERF.md §5)")
 
     def sweep_yardstick(self, fac, b):
         """K2's yardstick: the same 2 ny - 1 products with full reuse of G
@@ -874,81 +869,6 @@ class Smoke:
                     f"x{count:<6d} {key[:90]}")
 
 
-    # -- phase 7 --------------------------------------------------------
-    def digest(self):
-        """K5 and K3 through the wrappers' plain signatures, which every
-        version of the port takes, so that two trees can be compared in one
-        call: SHA-256 of K5's outputs on the level-0 pivot blocks of the
-        301^2 breast operator and on a seeded (150, 64, 64) batch, and of
-        K3's forward and adjoint applies to 256 seeded fields on it; K5's
-        time (a CUDA graph of 50 launches) at each batch one cyclic
-        factorization inverts, and their sum over it; K3's (a graph of 20)
-        at both call sites."""
-        import hashlib
-        import torch
-        from waveforminversionust_tpu_torch.config import SolverConfig
-        from waveforminversionust_tpu_torch.models.grid import Grid2D
-        from waveforminversionust_tpu_torch.models.phantom import breast_phantom
-        from waveforminversionust_tpu_torch.ops import apply, cyclic
-        from waveforminversionust_tpu_torch.ops.kernel_inv import batched_small_inv_kernel
-        from waveforminversionust_tpu_torch.ops.kernel_stencil import h_apply_kernel
-        from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
-
-        dev, cfg, grid = self.device, SolverConfig(), self.grid
-        rng = np.random.default_rng(0)
-
-        def planes(g):
-            return helmholtz_coefficients(torch.as_tensor(breast_phantom(g), device=dev),
-                                          g, 350e3, cfg.pml, cfg.stencil)
-
-        def fields(shape):
-            return torch.as_tensor((rng.standard_normal(shape)
-                                    + 1j * rng.standard_normal(shape)
-                                    ).astype(np.complex64), device=dev)
-
-        c = planes(grid)
-        odd = slice(1, None, 2)
-        level0 = cyclic._btri_dense(c[0, odd], c[1, odd], c[2, odd]
-                                    )[:, :64, :64].contiguous()
-        a = (rng.standard_normal((150, 64, 64))
-             + 1j * rng.standard_normal((150, 64, 64))) / 8 + 2 * np.eye(64)
-        seeded = torch.as_tensor(a.astype(np.complex64), device=dev)
-        u = fields((self.n_tx,) + grid.shape)
-        adj = apply.adjoint_coefficients(c)
-        for label, fn in (
-                ("K5 level-0 pivot blocks", lambda: batched_small_inv_kernel(level0)),
-                ("K5 seeded batch", lambda: batched_small_inv_kernel(seeded)),
-                ("K3 forward", lambda: h_apply_kernel(c, u)),
-                ("K3 adjoint", lambda: h_apply_kernel(adj, u))):
-            out = fn().cpu().numpy()
-            log(f" digest {label} {out.shape}: "
-                f"{hashlib.sha256(out.tobytes()).hexdigest()}")
-
-        crf = cyclic.cr_factor(c)
-        batches = [lev.dinv.shape[0] for lev in crf.levels] + [1]
-        del crf
-        panels = -(-grid.nx // 64)
-        times = {}
-        for n in sorted(set(batches), reverse=True):
-            p = level0[:n].contiguous()
-            times[n] = graph_timed(lambda: batched_small_inv_kernel(p)) * 1e3
-        log(f" K5 us a launch by batch: { {n: round(t, 2) for n, t in times.items()} }; "
-            f"one factorization ({batches} x {panels} panels): "
-            f"{sum(panels * times[n] for n in batches) / 1e3:.3f} ms")
-        for label, g, batch in (("301^2 x 256", grid, self.n_tx),
-                                ("801^2 x 4",
-                                 Grid2D.centered(0.4e-3 * (BIG - 1), 0.8e-3), 4)):
-            cg = c if g is grid else planes(g)
-            ug = u if g is grid else fields((batch,) + g.shape)
-            ag = adj if g is grid else apply.adjoint_coefficients(cg)
-            nbytes = (cg.numel() + 2 * ug.numel()) * C64
-            fwd = graph_timed(lambda: h_apply_kernel(cg, ug), launches=20)
-            bwd = graph_timed(lambda: h_apply_kernel(ag, ug), launches=20)
-            log(f" K3 {label}: forward {fwd:.4f} ms, adjoint {bwd:.4f} ms, "
-                f"mean {(fwd + bwd) / 2:.4f} ms, "
-                f"{nbytes / ((fwd + bwd) / 2) / 1e9:.3f} TB/s")
-
-
 def nvidia_smi(query="name,power.limit") -> str:
     """The first card's ``nvidia-smi --query-gpu`` line for ``query``."""
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
@@ -965,7 +885,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,data,slice,slice_twisted,slice_cr,parity",
                     help="comma-separated subset of kernels,data,slice,"
-                         "slice_twisted,slice_cr,parity,profile,digest")
+                         "slice_twisted,slice_cr,parity,profile")
     args = ap.parse_args(argv)
 
     import torch
@@ -1000,8 +920,6 @@ def main(argv=None) -> int:
         for name in SLICES + ("parity", "profile"):
             if name in phases and "data" not in smoke.failures:
                 smoke.phase(name, getattr(smoke, name))
-        if "digest" in phases:
-            smoke.phase("digest", smoke.digest)
 
     rows = []
     for name, meta in KERNELS.items():

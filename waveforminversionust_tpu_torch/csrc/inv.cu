@@ -23,12 +23,12 @@
 // which rounds otherwise, moved that engine's residual after a refinement
 // pass from 6.3e-4 to 2.6e-3 (NVIDIA H100 80GB HBM3, 700 W).
 //
-// The layout: one block of W = 8 warps (or 16) a matrix, identity-padded to
-// 64 x 64 so that no element needs a mask, in registers; each thread a 4 x 4
-// tile (4 x 2 with 16 warps). A step reads column j (4 values), row j (4) and
-// 1 / the pivot from shared memory, double-buffered by the parity of j; the
-// threads holding column j + 1, row j + 1 and the next pivot write them after
-// their update; one block barrier a step. A tile serves 16 elements with 4
+// The layout: one block of 8 warps a matrix, identity-padded to 64 x 64 so
+// that no element needs a mask, in registers; each thread a 4 x 4 tile. A
+// step reads column j (4 values), row j (4) and 1 / the pivot from shared
+// memory, double-buffered by the parity of j; the threads holding column
+// j + 1, row j + 1 and the next pivot write them after their update; one
+// block barrier a step. A tile serves 16 elements with 4
 // column values, 4 row values and 4 multipliers s, where the first version
 // read 2 + 2 for 4 elements and had a thread per 4 elements: the shared-
 // memory traffic of a step falls from 4 loads of 32 warps to 5 of 8 warps.
@@ -40,11 +40,16 @@
 // 4096 x 6 / 32 = 768 warp instructions a step; around it each step loads
 // column j, row j and the pivot after a barrier, forms the multipliers,
 // stores column and row j + 1 and the next reciprocal, and waits at the
-// barrier, and that costs more than the update (chip_smoke.py prints about
-// 1000 cycles a step). Publishing row and column j + 1 before the rest of
-// the update, behind split arrive / wait barriers, did not shorten a step;
-// splitting a matrix over a thread-block cluster would pay a cluster
-// barrier a step, which costs about as much as a whole step on one SM.
+// barrier, and that costs more than the update: chip_smoke.py prints about
+// 1000 cycles a step, where the update alone takes about 170 on 8 warps,
+// 190 with the barrier and 415 with the shared-memory reads
+// (probes/k5_layouts.py times these parts). The row layout, warps owning
+// rows with column j by __shfl_sync, gives the same bits and is no faster,
+// with or without a lookahead row and per-row mbarriers: its shuffled
+// column alone costs about 500 cycles a step (the same probe times it
+// against this kernel). Splitting a matrix over a thread-block cluster
+// would pay a cluster barrier a step, about as much as a whole step on one
+// SM.
 // With a batch above the 132 SMs two matrices share an SM.
 // Any b <= 64 and any batch; the grid is the batch.
 //
@@ -86,14 +91,9 @@ __device__ __forceinline__ float2 gj_pivot(float2 piv) {
   return make_float2(__fmul_rn(piv.x, inv), -__fmul_rn(piv.y, inv));
 }
 
-// Tiles of 4 x TC: lane l of warp w holds rows r0 = 4 (TRW w + l / LT) ..
-// r0 + 3 and columns c0 = TC (l % LT) .. c0 + TC - 1, LT = 64 / TC lanes a
-// tile row, TRW = 32 / LT tile rows a warp; W warps a matrix.
-template <int TC>
-struct Tiles {
-  static constexpr int LT = kBk / TC, TRW = 32 / LT, W = kBk / 4 / TRW;
-  static constexpr int kThreads = 32 * W;
-};
+// Tiles of 4 x 4: lane l of warp w holds rows r0 = 4 (2 w + l / 16) .. r0 + 3
+// and columns c0 = 4 (l % 16) .. c0 + 3; 8 warps a matrix.
+constexpr int kTile = 4, kInvThreads = kBk * kBk / (kTile * kTile);
 
 // What step j reads, written during step j - 1, by the parity of j.
 struct GjBuf {
@@ -102,99 +102,96 @@ struct GjBuf {
   float2 piv[2];       // 1 / its pivot
 };
 
-// Step j, j % 4 == KJ (so column j is element KJ % TC of the threads that
-// hold it, row j row KJ of theirs); LOW: the warp's rows lie in 0 .. 31.
-template <int TC, int KJ, bool LOW>
-__device__ __forceinline__ void gj_step(float2 (&P)[4][TC], int j, int b,
-                                        int r0, int c0, GjBuf& s) {
-  constexpr int KC = KJ % TC;
+// Step j, j % 4 == KJ (so column j is element KJ of the threads that hold
+// it, row j row KJ of theirs); LOW: the warp's rows lie in 0 .. 31.
+template <int KJ, bool LOW>
+__device__ __forceinline__ void gj_step(float2 (&P)[kTile][kTile], int j,
+                                        int b, int r0, int c0, GjBuf& s) {
   const int in = j & 1;
   const float2 p = s.piv[in];
-  float2 cj[4], rv[TC];
+  float2 cj[kTile], rv[kTile];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) cj[i] = s.col[in][r0 + i];
+  for (int i = 0; i < kTile; ++i) cj[i] = s.col[in][r0 + i];
 #pragma unroll
-  for (int k = 0; k < TC; ++k) rv[k] = s.row[in][c0 + k];
-  const bool colj = j - c0 == KC;
+  for (int k = 0; k < kTile; ++k) rv[k] = s.row[in][c0 + k];
+  const bool colj = j - c0 == KJ;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kTile; ++i) {
     const float2 si = gj_col(cj[i], p, LOW);
 #pragma unroll
-    for (int k = 0; k < TC; ++k) P[i][k] = gj_update(P[i][k], si, rv[k]);
-    if (colj) P[i][KC] = make_float2(-si.x, -si.y);
+    for (int k = 0; k < kTile; ++k) P[i][k] = gj_update(P[i][k], si, rv[k]);
+    if (colj) P[i][KJ] = make_float2(-si.x, -si.y);
   }
   if (j - r0 == KJ) {  // row j: p rv, and p on the pivot
 #pragma unroll
-    for (int k = 0; k < TC; ++k) P[KJ][k] = gj_row(p, rv[k]);
-    if (colj) P[KJ][KC] = p;
+    for (int k = 0; k < kTile; ++k) P[KJ][k] = gj_row(p, rv[k]);
+    if (colj) P[KJ][KJ] = p;
   }
-  const int n = j + 1;  // column n is element NC, row n row NI of their holders
-  constexpr int NI = (KJ + 1) % 4, NC = (KJ + 1) % TC;
+  const int n = j + 1;  // column n is element NI, row n row NI of their holders
+  constexpr int NI = (KJ + 1) % kTile;
   if (n < b) {
-    const bool coln = n - c0 == NC;
+    const bool coln = n - c0 == NI;
     if (coln) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s.col[in ^ 1][r0 + i] = P[i][NC];
+      for (int i = 0; i < kTile; ++i) s.col[in ^ 1][r0 + i] = P[i][NI];
     }
     if (n - r0 == NI) {
 #pragma unroll
-      for (int k = 0; k < TC; ++k) s.row[in ^ 1][c0 + k] = P[NI][k];
-      if (coln) s.piv[in ^ 1] = gj_pivot(P[NI][NC]);
+      for (int k = 0; k < kTile; ++k) s.row[in ^ 1][c0 + k] = P[NI][k];
+      if (coln) s.piv[in ^ 1] = gj_pivot(P[NI][NI]);
     }
   }
   __syncthreads();
 }
 
-template <int TC, bool LOW>
-__device__ __forceinline__ void gj_steps(float2 (&P)[4][TC], int b, int r0,
-                                         int c0, GjBuf& s) {
+template <bool LOW>
+__device__ __forceinline__ void gj_steps(float2 (&P)[kTile][kTile], int b,
+                                         int r0, int c0, GjBuf& s) {
   for (int j = 0; j < b; ++j) {
     switch (j & 3) {
-      case 0: gj_step<TC, 0, LOW>(P, j, b, r0, c0, s); break;
-      case 1: gj_step<TC, 1, LOW>(P, j, b, r0, c0, s); break;
-      case 2: gj_step<TC, 2, LOW>(P, j, b, r0, c0, s); break;
-      case 3: gj_step<TC, 3, LOW>(P, j, b, r0, c0, s); break;
+      case 0: gj_step<0, LOW>(P, j, b, r0, c0, s); break;
+      case 1: gj_step<1, LOW>(P, j, b, r0, c0, s); break;
+      case 2: gj_step<2, LOW>(P, j, b, r0, c0, s); break;
+      case 3: gj_step<3, LOW>(P, j, b, r0, c0, s); break;
     }
   }
 }
 
-template <int TC>
-__global__ void __launch_bounds__(Tiles<TC>::kThreads)
+__global__ void __launch_bounds__(kInvThreads)
 batched_gj(const float2* __restrict__ src, float2* __restrict__ dst, int b) {
-  using T = Tiles<TC>;
   __shared__ __align__(16) GjBuf s;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int r0 = 4 * (T::TRW * w + lane / T::LT), c0 = TC * (lane % T::LT);
+  const int r0 = kTile * (2 * w + lane / 16), c0 = kTile * (lane % 16);
   const long long off = (long long)blockIdx.x * b * b;
 
-  float2 P[4][TC];
+  float2 P[kTile][kTile];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kTile; ++i)
 #pragma unroll
-    for (int k = 0; k < TC; ++k) {
+    for (int k = 0; k < kTile; ++k) {
       const int r = r0 + i, c = c0 + k;
       P[i][k] = (r < b && c < b) ? src[off + (long long)r * b + c]
                                  : make_float2(r == c ? 1.f : 0.f, 0.f);
     }
   if (c0 == 0) {  // column 0, row 0 and its pivot
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s.col[0][r0 + i] = P[i][0];
+    for (int i = 0; i < kTile; ++i) s.col[0][r0 + i] = P[i][0];
   }
   if (r0 == 0) {
 #pragma unroll
-    for (int k = 0; k < TC; ++k) s.row[0][c0 + k] = P[0][k];
+    for (int k = 0; k < kTile; ++k) s.row[0][c0 + k] = P[0][k];
     if (c0 == 0) s.piv[0] = gj_pivot(P[0][0]);
   }
   __syncthreads();
   if (r0 < 32)  // warp-uniform: a warp's rows lie on one side of row 32
-    gj_steps<TC, true>(P, b, r0, c0, s);
+    gj_steps<true>(P, b, r0, c0, s);
   else
-    gj_steps<TC, false>(P, b, r0, c0, s);
+    gj_steps<false>(P, b, r0, c0, s);
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kTile; ++i)
 #pragma unroll
-    for (int k = 0; k < TC; ++k) {
+    for (int k = 0; k < kTile; ++k) {
       const int r = r0 + i, c = c0 + k;
       if (r < b && c < b) dst[off + (long long)r * b + c] = P[i][k];
     }
@@ -213,20 +210,13 @@ blocked_gj(const float2* __restrict__ p, float2* __restrict__ out, int b) {
 
 }  // namespace
 
-// p, out: (batch, b, b) complex64, b <= 64; warps: 8 (4 x 4 tiles), 16 (4 x 2)
-// or 0 for 8. *launched is raised by the number of kernels launched (1).
+// p, out: (batch, b, b) complex64, b <= 64. *launched is raised by the
+// number of kernels launched (1).
 extern "C" int batched_small_inv(const void* p, void* out, int batch, int b,
-                                 int warps, int* launched, void* stream) {
+                                 int* launched, void* stream) {
   if (b < 1 || b > kBk) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (warps == 0 || warps == Tiles<4>::W)
-    batched_gj<4><<<batch, Tiles<4>::kThreads, 0, s>>>((const float2*)p,
-                                                       (float2*)out, b);
-  else if (warps == Tiles<2>::W)
-    batched_gj<2><<<batch, Tiles<2>::kThreads, 0, s>>>((const float2*)p,
-                                                       (float2*)out, b);
-  else
-    return (int)cudaErrorInvalidValue;
+  batched_gj<<<batch, kInvThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)p, (float2*)out, b);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return (int)err;

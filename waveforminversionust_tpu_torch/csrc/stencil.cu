@@ -36,7 +36,7 @@
 //     that every thread is done with the buffer the next copy refills.
 // The split of the batch into groups trades the planes' rereads (once a
 // group, from L2) against enough blocks to keep bytes in flight on every SM:
-// groups of kDefaultFields, chosen on the card (chip_smoke.py times others).
+// groups of kFields, chosen on the card (PERF.md, section 6).
 // Each output keeps the arithmetic of the first version: the slot order C,
 // L, R, D, U, DL, DR, UL, UR of ops/stencil.py, a zero coefficient for a
 // neighbour outside the grid, and the same sums, so the outputs are its bits
@@ -56,7 +56,7 @@ constexpr int kTileY = 16;                // rows a tile: two a thread
 constexpr int kRows = kTileY + 2;         // with the halo
 constexpr int kTasks = kRows * kPairs;    // 16-byte pieces a tile
 constexpr int kPer = (kTasks + kThreads - 1) / kThreads;  // of them a thread
-constexpr int kDefaultFields = 8;         // fields a block, unless asked
+constexpr int kFields = 8;                // fields a block
 constexpr int kStages = 5;                // fields in shared memory at once
 constexpr int kMinBlocks = 3;             // blocks an SM: at most 85 registers
 
@@ -73,8 +73,7 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int size,
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stencil9_kernel(const float2* __restrict__ coeffs, const float2* __restrict__ u,
-                float2* __restrict__ out, int batch, int ny, int nx,
-                int fields) {
+                float2* __restrict__ out, int batch, int ny, int nx) {
   constexpr int S = kStages;
   __shared__ __align__(16) float2 tiles[S][kRows][kColsS];
   const int tx = threadIdx.x % kTileX, ty = threadIdx.x / kTileX;
@@ -155,8 +154,8 @@ stencil9_kernel(const float2* __restrict__ coeffs, const float2* __restrict__ u,
 #pragma unroll
   for (int q = 0; q < 4; ++q) cpar[q] = row_par(y0 - 1 + 2 * ty + q);
 
-  const int f0 = blockIdx.z * fields;
-  const int f1 = min(f0 + fields, batch);
+  const int f0 = blockIdx.z * kFields;
+  const int f1 = min(f0 + kFields, batch);
 #pragma unroll
   for (int q = 0; q < S - 1; ++q) {  // the first S - 1 fields in flight
     if (f0 + q < f1) issue(&tiles[q][0][0], f0 + q);
@@ -187,17 +186,14 @@ stencil9_kernel(const float2* __restrict__ coeffs, const float2* __restrict__ u,
 
 }  // namespace
 
-// fields: fields a block (0: kDefaultFields). *launched is raised by the
-// number of kernels launched (1).
+// *launched is raised by the number of kernels launched (1).
 extern "C" int stencil9_apply(const void* coeffs, const void* u, void* out,
-                              int batch, int ny, int nx, int fields,
-                              int* launched, void* stream) {
-  if (fields <= 0) fields = kDefaultFields;
+                              int batch, int ny, int nx, int* launched,
+                              void* stream) {
   const dim3 grid((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY,
-                  (batch + fields - 1) / fields);
+                  (batch + kFields - 1) / kFields);
   stencil9_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)coeffs, (const float2*)u, (float2*)out, batch, ny, nx,
-      fields);
+      (const float2*)coeffs, (const float2*)u, (float2*)out, batch, ny, nx);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return (int)err;

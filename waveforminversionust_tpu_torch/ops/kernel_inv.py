@@ -5,8 +5,7 @@ Replaces ``waveforminversionust_tpu/ops/pallas_inv.py::batched_small_inv_pallas`
 (``_gj_kernel``). The plain version is
 :func:`.batched_inv._batched_pivot_inv`; a CPU tensor takes it, a CUDA
 tensor launches the kernel or raises. One launch inverts the whole batch,
-one thread block per matrix: 8 warps holding 4 x 4 tiles of it in registers
-(16 warps and 4 x 2 tiles when a caller asks, for timings).
+one thread block per matrix: 8 warps holding 4 x 4 tiles of it in registers.
 
 ``csrc/inv.cu`` has a second entry for the same function,
 :func:`pivot_inverse_kernel`: the blocked inverse that the factorizations'
@@ -24,16 +23,14 @@ import torch
 from . import _build
 
 MAX_B = 64  # largest block either kernel holds in one thread block
-WARPS = (8, 16)  # the chain kernel's thread blocks; 8 unless asked
 
 launches = 0        # kernel launches made through batched_small_inv_kernel
 pivot_launches = 0  # and through pivot_inverse_kernel (no path's kernel)
 
 
-def _launch(entry: str, p: torch.Tensor, *warps: int
-            ) -> tuple[torch.Tensor, int]:
+def _launch(entry: str, p: torch.Tensor) -> tuple[torch.Tensor, int]:
     """(inverse, kernels launched) of p (B, b, b) through a C entry point
-    of ``csrc/inv.cu``; ``warps``: the chain kernel's warps a matrix."""
+    of ``csrc/inv.cu``."""
     if p.dim() != 3 or p.shape[1] != p.shape[2]:
         raise ValueError(f"p shape {tuple(p.shape)} != (B, b, b)")
     if p.shape[1] > MAX_B:
@@ -44,28 +41,25 @@ def _launch(entry: str, p: torch.Tensor, *warps: int
     if p.shape[0] == 0:
         return out, 0
     fn = getattr(_build.load("inv"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * (2 + len(warps))
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
-    rc = fn(p.data_ptr(), out.data_ptr(), p.shape[0], p.shape[1], *warps,
+    rc = fn(p.data_ptr(), out.data_ptr(), p.shape[0], p.shape[1],
             ctypes.addressof(n), _build.stream_handle(p.device))
     _build.check(rc, f"inverse kernel {entry}")
     return out, n.value
 
 
-def batched_small_inv_kernel(p: torch.Tensor, warps: int = 8) -> torch.Tensor:
+def batched_small_inv_kernel(p: torch.Tensor) -> torch.Tensor:
     """Inverse of every (b, b) block of p (B, b, b) complex64, b <= 64, by
     unpivoted Gauss-Jordan with the pivot row and column overwritten by
-    directly computed values. ``warps``: one of :data:`WARPS` a matrix (for
-    timings; the result is the same to the bit)."""
+    directly computed values."""
     global launches
     if p.device.type == "cpu":
         from .batched_inv import _batched_pivot_inv
         return _batched_pivot_inv(p)
-    if warps not in WARPS:
-        raise ValueError(f"warps {warps} not in {WARPS}")
-    out, n = _launch("batched_small_inv", p, warps)
+    out, n = _launch("batched_small_inv", p)
     launches += n
     return out
 

@@ -4,8 +4,8 @@ Replaces ``waveforminversionust_tpu/ops/pallas_stencil.py``'s
 ``h_apply_pallas_cpx`` and ``h_apply_tiled_cpx``: one kernel serves both
 call sites. The plain version is :func:`.apply.h_apply`; a CPU tensor takes
 it, a CUDA tensor launches the kernel or raises. A block of the kernel owns a
-32 x 16 tile of the grid for a group of fields, streamed through shared
-memory; ``fields`` sets how many (0: the kernel's default, 8).
+32 x 16 tile of the grid for a group of 8 fields, streamed through shared
+memory.
 """
 
 from __future__ import annotations
@@ -22,17 +22,15 @@ launches = 0  # kernel launches made through h_apply_kernel
 
 def _bind():
     fn = _build.load("stencil").stencil9_apply
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-def h_apply_kernel(coeffs: torch.Tensor, u: torch.Tensor,
-                   fields: int = 0) -> torch.Tensor:
+def h_apply_kernel(coeffs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """out[b] = sum_s coeffs[s] * shift_s(u[b]) for coeffs (9, ny, nx) and
     u (batch, ny, nx), both complex64. Pass adjoint_coefficients planes for
-    the adjoint apply. ``fields``: fields a thread block (for timings; the
-    result is the same), 0 for the kernel's default."""
+    the adjoint apply."""
     global launches
     if u.device.type == "cpu":
         return h_apply(coeffs, u)
@@ -46,7 +44,7 @@ def h_apply_kernel(coeffs: torch.Tensor, u: torch.Tensor,
     out = torch.empty_like(u)
     n = ctypes.c_int(0)
     rc = _bind()(coeffs.data_ptr(), u.data_ptr(), out.data_ptr(), batch, ny, nx,
-                 fields, ctypes.addressof(n), _build.stream_handle(u.device))
+                 ctypes.addressof(n), _build.stream_handle(u.device))
     launches += n.value
     _build.check(rc, "stencil kernel")
     return out
