@@ -33,7 +33,21 @@ Phases (any failure makes the exit code non-zero):
   5. parity: 2 iterations of each engine through the kernels and through the
      plain PyTorch functions on the same CUDA tensors, held to the golden
      bounds;
-  6. profile (only when asked for): torch.profiler over 2 iterations of each
+  6. intake: bench.py::bench_intake through the public entry points with no
+     device named, on the data phase's dataset: qc_report and reciprocity
+     compensation, calibrate_background_speed (301^2, 16 transmitters, 9
+     candidates over 1400-1600 m/s, 2 levels; its 18 misfits held against
+     the plain path's at the same speeds), then invert_dataset with
+     bilinear receivers and illumination preconditioning from the
+     calibrated speed (10 iterations, warm-up then timed), and 2 of its
+     iterations held against the plain path's;
+  7. runner: invert_dataset's other paths at 301^2 / 256 transmitters: a
+     two-stage continuation (300 then 350 kHz) over a {frequency: dataset}
+     mapping with receiver calibration, refactor_every=2, checkpoints every
+     2 iterations and a live callback; then the kill-and-resume of
+     tests/test_fwi.py (one stage of 4, killed after the first checkpoint,
+     resumed) against the uninterrupted run;
+  8. profile (only when asked for): torch.profiler over 2 iterations of each
      engine, device time by kernel name and the idle share.
 
 The last lines are a JSON object of the kernels, the card's name and power
@@ -96,6 +110,10 @@ TOL = {"factor": 5e-6, "sweep": 1e-5, "sweep_401": 1e-5, "stencil": 1e-6,
 GOLDEN = dict(loss=1e-2, step=1e-2, vel_atol=0.5, vel_frac=None)
 CR_BOUNDS = dict(loss=1e-2, step=5e-2, vel_atol=None, vel_frac=2e-3)
 N_ITER = 10  # CG iterations of the timed slices (bench.py's N_ITER)
+# The intake's calibration misfits, kernel path against the plain path at
+# the same 18 speeds: rtol. Measured 1.26e-6 on an H100 80GB HBM3 at 700 W
+# (PERF.md §6), so 1e-4 leaves a margin of ~80.
+CAL_RTOL = 1e-4
 BIG = 801    # grid side of the tiled call site's check
 REPS = 5     # timed calls per kernel case, after one warm-up call
 # Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
@@ -827,6 +845,246 @@ class Smoke:
         self.check(not failed, f"parity failed: {failed}")
 
     # -- phase 6 --------------------------------------------------------
+    def intake(self):
+        """bench.py::bench_intake on the data phase's dataset, through the
+        entry points a user calls, none of them told a device."""
+        import torch
+        from waveforminversionust_tpu_torch import (AcquisitionConfig,
+                                                    FWIConfig, SolverConfig,
+                                                    calibrate_background_speed,
+                                                    compensate_reciprocity,
+                                                    invert_dataset, qc_report)
+        from waveforminversionust_tpu_torch.fwi.calibrate import background_misfit_fn
+        from waveforminversionust_tpu_torch.fwi.objective import build_fwi_data
+        from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
+        from waveforminversionust_tpu_torch.models.acquisition import build_ring_acquisition
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+
+        grid = self.grid
+        t0 = time.perf_counter()
+        rep = qc_report(self.ds.rec_data, exclude_each_side=31)
+        ds = self.ds._replace(rec_data=compensate_reciprocity(
+            self.ds.rec_data, rep.ratios))
+        log(f" qc: asymmetry raw {rep.asymmetry_raw:.4e} compensated "
+            f"{rep.asymmetry_compensated:.4e}; flagged channels "
+            f"{rep.bad_elements.tolist()} ({time.perf_counter() - t0:.2f} s "
+            f"on the host)")
+
+        search = dict(c_min=1400.0, c_max=1600.0, num=9, levels=2)
+        cal_acq = AcquisitionConfig(tx_downsample=16)
+        calibrate_background_speed(ds, grid=grid, acquisition=cal_acq,
+                                   **dict(search, levels=1, num=3))  # warm-up
+        torch.cuda.synchronize()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        cal = calibrate_background_speed(ds, grid=grid, acquisition=cal_acq,
+                                         **search)
+        torch.cuda.synchronize()
+        cal_s = time.perf_counter() - t0
+        cal_counts = kernel_launch_counts()
+        n_cand = len(cal.candidates)
+        log(f" calibration: {cal_s:.4f} s, {cal_s / n_cand * 1e3:.2f} ms a "
+            f"candidate ({n_cand}); c0 {cal.c0:.4f} m/s, best candidate "
+            f"{cal.c_grid_best:.4f}; launches {cal_counts}")
+        pairs = [(round(float(c), 4), float(f"{j:.6e}"))
+                 for c, j in zip(cal.candidates, cal.misfits)]
+        log(f" (c, J): {pairs}")
+        last_step = 2 * (search["c_max"] - search["c_min"]) / (search["num"] - 1) ** 2
+        self.check(search["c_min"] <= cal.c0 <= search["c_max"]
+                   and abs(cal.c0 - cal.c_grid_best) <= last_step,
+                   f"c0 {cal.c0} outside [1400, 1600] or more than "
+                   f"{last_step} from {cal.c_grid_best}")
+
+        # The plain path's misfits at the same 18 speeds.
+        acq = build_ring_acquisition(grid, cal_acq, x_elem=ds.x_circ,
+                                     y_elem=ds.y_circ)
+        data = build_fwi_data(acq, ds.rec_data, ds.f)
+        with plain_engines():
+            J = background_misfit_fn(data, grid, SolverConfig(
+                factorization="thomas", fused_apply="off"))
+            t0 = time.perf_counter()
+            plain = np.array([float(J(c)) for c in cal.candidates])
+            plain_s = time.perf_counter() - t0
+        drift = float(np.max(np.abs(cal.misfits - plain) / np.abs(plain)))
+        log(f" calibration misfits, kernel path vs plain path at the same "
+            f"speeds: max rel {drift:.3e} (held to {CAL_RTOL:.0e}); plain "
+            f"path {plain_s / n_cand * 1e3:.1f} ms a candidate")
+        self.check(drift <= CAL_RTOL, f"calibration misfits differ by {drift}")
+
+        acq_cfg = AcquisitionConfig(interpolation="bilinear")
+
+        def run(n_iter, **kw):
+            return invert_dataset(
+                ds, grid=grid, acquisition=acq_cfg,
+                fwi=FWIConfig(num_iterations=n_iter,
+                              precondition="illumination"),
+                c_init=cal.c0, **kw)
+
+        t0 = time.perf_counter()
+        run(N_ITER)
+        torch.cuda.synchronize()
+        log(f" warm-up inversion: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        res = run(N_ITER)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        loss, step = res.metrics["loss"], res.metrics["step_size"]
+        true_grid = Grid2D.from_arrays(ds.x, ds.y)
+        rmse0 = reconstruction_rmse(np.full(grid.shape, cal.c0), grid, ds.c,
+                                    true_grid)
+        rmse = reconstruction_rmse(res.velocity, grid, ds.c, true_grid)
+        log(f" s/iter {elapsed / N_ITER:.6f} ({N_ITER} iterations, "
+            f"{elapsed:.4f} s); peak device memory {peak / 2**20:.1f} MiB")
+        log(f" loss {loss.tolist()}")
+        log(f" rmse start {rmse0:.4f} m/s end {rmse:.4f} m/s; the main "
+            f"slice's end: "
+            f"{self.slices['slice']['rmse_end'] if 'slice' in self.slices else 'not run'}")
+        log(f" kernel launches in the timed run: {counts}")
+        self.slices["intake"] = dict(
+            calibration_s=cal_s, c0=cal.c0, c_grid_best=cal.c_grid_best,
+            calibration_launches=cal_counts, s_per_iter=elapsed / N_ITER,
+            iterations=N_ITER, rmse_start=rmse0, rmse_end=rmse,
+            loss=loss.tolist(), step=step.tolist(), launches=counts,
+            peak_memory_mib=peak / 2**20)
+        for k in KERNELS:
+            self.launches[k] += counts[k] + cal_counts[k]
+        self.check(np.all(np.isfinite(loss)) and loss[-1] < loss[0],
+                   f"loss not finite or not decreasing: {loss}")
+        self.check(rmse < rmse0, f"rmse {rmse} not below the start {rmse0}")
+        for c in (cal_counts, counts):
+            self.check(c["factor"] > 0 and c["sweep"] > 0,
+                       f"factor or sweep not launched: {c}")
+            self.check(all(c[k] == 0 for k in ("twisted_factor",
+                                               "twisted_sweep", "batched_inv")),
+                       f"a kernel of another engine was launched: {c}")
+
+        kern = run(2)
+        with plain_engines():
+            plain = run(2, solver=SolverConfig(factorization="thomas",
+                                               fused_apply="off"))
+        failed = self.hold("intake, kernel path vs plain path", GOLDEN,
+                           kern.metrics["loss"], plain.metrics["loss"],
+                           kern.metrics["step_size"], plain.metrics["step_size"],
+                           torch.as_tensor(kern.velocity),
+                           torch.as_tensor(plain.velocity))
+        self.check(not failed, f"{failed}")
+
+    # -- phase 7 --------------------------------------------------------
+    def runner(self):
+        """invert_dataset's continuation, receiver calibration, chunked
+        checkpoints, live callback and resume at the main path's size."""
+        import tempfile
+
+        import torch
+        from waveforminversionust_tpu_torch import (ContinuationConfig,
+                                                    FWIConfig, SolverConfig,
+                                                    invert_dataset,
+                                                    synthesize_ring_dataset)
+        from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
+        from waveforminversionust_tpu_torch.models.phantom import breast_phantom
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+        from waveforminversionust_tpu_torch.utils import checkpoint
+
+        fine, grid = data_grid(), self.grid
+        t0 = time.perf_counter()
+        ds300 = synthesize_ring_dataset(breast_phantom(fine), fine,
+                                        self.acq_config, f=300e3, seed=0)
+        log(f" synthesized the 300 kHz recording in "
+            f"{time.perf_counter() - t0:.2f} s")
+        recs = {300e3: ds300, 350e3: self.ds}
+        freqs = (300e3, 350e3)
+        solver = SolverConfig(refactor_every=2)
+        seen, ends = [], []
+
+        def live(stage, f, it, vel, m):
+            seen.append((stage, f, it))
+
+        def stage_done(stage, f, vel, m):
+            ends.append(time.perf_counter())
+
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_kernel_launch_counts()
+            t0 = time.perf_counter()
+            res = invert_dataset(
+                recs, grid=grid, solver=solver,
+                continuation=ContinuationConfig(frequencies=freqs,
+                                                iterations_per_frequency=3),
+                receiver_calibration=True, checkpoint_dir=tmp,
+                checkpoint_every=2, live_every=2, live_callback=live,
+                callback=stage_done)
+            torch.cuda.synchronize()
+            counts = kernel_launch_counts()
+            st = checkpoint.load_state(f"{tmp}/latest")
+        stage_s = np.diff([t0] + ends)
+        loss = res.metrics["loss"]
+        true_grid = Grid2D.from_arrays(self.ds.x, self.ds.y)
+        rmse0 = reconstruction_rmse(np.full(grid.shape, FWIConfig().c_init),
+                                    grid, self.ds.c, true_grid)
+        rmse = reconstruction_rmse(res.velocity, grid, self.ds.c, true_grid)
+        log(f" continuation {freqs}: stage seconds {stage_s.tolist()}; loss "
+            f"{loss.tolist()}; rmse start {rmse0:.4f} end {rmse:.4f} m/s")
+        log(f" live callbacks {seen}; launches {counts}")
+        self.slices["runner"] = dict(stage_s=stage_s.tolist(),
+                                     loss=loss.tolist(), rmse_start=rmse0,
+                                     rmse_end=rmse, launches=counts)
+        for k in KERNELS:
+            self.launches[k] += counts[k]
+        self.check(seen == [(0, 300e3, 2), (0, 300e3, 3), (1, 350e3, 2),
+                            (1, 350e3, 3)], f"live callbacks {seen}")
+        self.check(len(ends) == 2, f"stage callbacks {len(ends)}")
+        self.check((int(st["stage"]), int(st["iteration"])) == (1, 3),
+                   f"last checkpoint at {int(st['stage'])}, {int(st['iteration'])}")
+        self.check(np.all(np.isfinite(loss)) and loss[2] < loss[0]
+                   and loss[5] < loss[3], f"stage losses not decreasing: {loss}")
+        self.check(rmse < rmse0, f"rmse {rmse} not below the start {rmse0}")
+        self.check(all(counts[k] > 0 for k in ("factor", "sweep", "stencil"))
+                   and all(counts[k] == 0 for k in ("twisted_factor",
+                                                    "twisted_sweep",
+                                                    "batched_inv")),
+                   f"launches {counts}")
+
+        # tests/test_fwi.py's kill and resume, at this size.
+        kw = dict(grid=grid, solver=solver, fwi=FWIConfig(num_iterations=4))
+        full = invert_dataset(self.ds, **kw)
+        save = checkpoint.save_state
+
+        class Killed(Exception):
+            pass
+
+        def dying_save(path, state):
+            save(path, state)
+            raise Killed
+
+        with tempfile.TemporaryDirectory() as tmp:
+            with mock.patch.object(checkpoint, "save_state", dying_save):
+                try:
+                    invert_dataset(self.ds, checkpoint_dir=tmp,
+                                   checkpoint_every=2, **kw)
+                    killed = False
+                except Killed:
+                    killed = True
+            t0 = time.perf_counter()
+            resumed = invert_dataset(self.ds, resume_from=f"{tmp}/latest", **kw)
+            resume_s = time.perf_counter() - t0
+        self.check(killed, "the run was not killed")
+        log(f" resumed the last 2 of 4 iterations in {resume_s:.2f} s")
+        failed = self.hold("resumed vs uninterrupted", GOLDEN,
+                           resumed.metrics["loss"], full.metrics["loss"],
+                           resumed.metrics["step_size"],
+                           full.metrics["step_size"],
+                           torch.as_tensor(resumed.velocity),
+                           torch.as_tensor(full.velocity))
+        self.check(not failed, f"{failed}")
+
+    # -- phase 8 --------------------------------------------------------
     def profile(self):
         """torch.profiler over 2 iterations (one factored, one stale) of
         each engine: device time by kernel name, and the idle share."""
@@ -878,14 +1136,16 @@ def nvidia_smi(query="name,power.limit") -> str:
 
 
 SLICES = ("slice", "slice_twisted", "slice_cr")
+PATHS = SLICES + ("parity", "intake", "runner", "profile")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,data,slice,slice_twisted,slice_cr,parity",
+                    default="kernels,data,slice,slice_twisted,slice_cr,"
+                            "parity,intake,runner",
                     help="comma-separated subset of kernels,data,slice,"
-                         "slice_twisted,slice_cr,parity,profile")
+                         "slice_twisted,slice_cr,parity,intake,runner,profile")
     args = ap.parse_args(argv)
 
     import torch
@@ -915,9 +1175,9 @@ def main(argv=None) -> int:
         phases = args.phases.split(",")
         if "kernels" in phases:
             smoke.phase("kernels", smoke.kernels_vs_plain)
-        if set(phases) & set(SLICES + ("data", "parity", "profile")):
+        if set(phases) & set(PATHS + ("data",)):
             smoke.phase("data", smoke.data)
-        for name in SLICES + ("parity", "profile"):
+        for name in PATHS:
             if name in phases and "data" not in smoke.failures:
                 smoke.phase(name, getattr(smoke, name))
 
@@ -936,7 +1196,7 @@ def main(argv=None) -> int:
         log(f"FAILED phases: {smoke.failures}")
         return 1
     for name, numbers in smoke.slices.items():
-        numbers.pop("velocity")
+        numbers.pop("velocity", None)
         log(f"{name}: {json.dumps(numbers)}")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -202,9 +202,12 @@ def test_pivot_inverse_matches_jax(b):
                                      (70, 32)])
 def test_batched_inv_matches_jax(n, block):
     """The blocked Gauss-Jordan (identity padding, panels, overwrites) ==
-    batched_inv(pivot="xla") and numpy complex128: 5e-5."""
+    batched_inv(pivot="xla") and numpy complex128: 5e-5. The port's own
+    pivot="xla" gives the bits of its default on a CPU tensor."""
     a = _random_batch(np.random.default_rng(4), 5, n)
     out = batched_inv.batched_inv(_t(a), block=block).numpy()
+    np.testing.assert_array_equal(
+        batched_inv.batched_inv(_t(a), block=block, pivot="xla").numpy(), out)
     assert out.shape == a.shape
     assert _batch_rel(out, np.linalg.inv(a.astype(np.complex128))) < 5e-5
     ref = cpx.to_numpy(jinv.batched_inv(cpx.of(jnp.asarray(a)), block=block,

@@ -18,12 +18,15 @@ torch.backends.cudnn.allow_tf32 = False
 from .config import (AcquisitionConfig, ContinuationConfig,  # noqa: E402
                      FWIConfig, MomentumFormula, PMLConfig, SolverConfig,
                      SolverMethod, StencilConfig, StepSizeFormula)
+from .data.qc import compensate_reciprocity, qc_report  # noqa: E402
 from .data.synthesize import RingDataset, synthesize_ring_dataset  # noqa: E402
 from .device import default_device  # noqa: E402
+from .fwi.calibrate import (CalibrationResult,  # noqa: E402
+                            background_misfit_fn, calibrate_background_speed)
 from .fwi.objective import FWIData, build_fwi_data  # noqa: E402
 from .fwi.optimizers import CGResult, nonlinear_cg  # noqa: E402
 from .fwi.runner import (default_inversion_grid, invert_dataset,  # noqa: E402
-                         reconstruction_rmse)
+                         make_logging_callback, reconstruction_rmse)
 from .models.acquisition import (RingAcquisition,  # noqa: E402
                                  build_ring_acquisition)
 from .models.grid import Grid2D  # noqa: E402

@@ -34,6 +34,27 @@ class RingDataset(NamedTuple):
     rec_data: np.ndarray  # (num_elements, num_elements) complex64, [tx, rx]
 
 
+def add_complex_noise(rec_data, snr_db: float, seed: int = 0,
+                      exclude_each_side: int = 0) -> np.ndarray:
+    """Additive complex-Gaussian measurement noise at a stated SNR over the
+    admitted entries (outside the +-``exclude_each_side`` ring band, the
+    entries the inversion fits): ``10 log10(mean|signal|^2 /
+    mean|noise|^2) = snr_db``. numpy ``default_rng(seed)``, so the same
+    seed gives the reference's bits. Returns a new complex64 matrix."""
+    from .qc import _pair_mask
+
+    m = np.asarray(rec_data).astype(np.complex64)
+    w = (_pair_mask(m.shape[0], exclude_each_side)
+         if exclude_each_side else np.ones(m.shape, bool))
+    sig_pow = float(np.mean(np.abs(m[w]) ** 2))
+    noise_pow = sig_pow / (10.0 ** (snr_db / 10.0))
+    rng = np.random.default_rng(seed)
+    scale = np.sqrt(noise_pow / 2.0)
+    noise = scale * (rng.standard_normal(m.shape)
+                     + 1j * rng.standard_normal(m.shape))
+    return (m + noise).astype(np.complex64)
+
+
 def dataclass_replace_tx_all(acquisition: AcquisitionConfig) -> AcquisitionConfig:
     """Synthesis transmits from every element and records the full rx
     matrix (the acceptance mask is an inversion-side choice)."""

@@ -155,10 +155,11 @@ class _Carry(NamedTuple):
 
 
 def make_cg_step(data: FWIData, grid: Grid2D, solver: SolverConfig,
-                 fwi: FWIConfig, mesh=None):
+                 fwi: FWIConfig, mesh=None, grid_axis: str = "grid"):
     """The body of one CG iteration: ``step(carry, it, local) -> (carry,
     metrics)``, ``it`` the global and ``local`` the in-call iteration
-    index."""
+    index. ``mesh`` / ``grid_axis`` come with the multi-device slice;
+    ``mesh`` raises until then."""
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device) is ported in a later "
                                   "slice (ROADMAP.md A, slice 7)")
@@ -283,7 +284,8 @@ def nonlinear_cg(vel_init, data: FWIData, grid: Grid2D,
                  fwi: FWIConfig = FWIConfig(),
                  num_iterations: int | None = None,
                  init_search_dir=None, init_grad_prev=None,
-                 iteration_offset: int = 0, mesh=None) -> CGResult:
+                 iteration_offset: int = 0, mesh=None,
+                 grid_axis: str = "grid") -> CGResult:
     """Run the nonlinear-CG inversion (nonlinearcg.py:41-180) with a
     metrics history. ``vel_init``: (ny, nx) starting model on the data's
     device; ``init_search_dir`` / ``init_grad_prev`` / ``iteration_offset``

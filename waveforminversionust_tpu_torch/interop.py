@@ -90,3 +90,28 @@ def cr_factor(levels, dinv_root, coeffs_re: np.ndarray,
                                for re, im in level)) for level in levels),
         dinv_root=complex_tensor(dinv_root[0], dinv_root[1], device),
         coeffs=complex_tensor(coeffs_re, coeffs_im, device))
+
+
+def inversion_state(state: dict) -> dict:
+    """The port's checkpoint dict (:mod:`.utils.checkpoint`) from the numpy
+    dict that the JAX package's ``utils.checkpoint.load_state`` returns, so
+    that a run checkpointed by the JAX package resumes in the port's
+    ``invert_dataset(resume_from=...)`` once saved with the port's
+    ``save_state``: the (ny, nx) fields float32, stage and iteration int32,
+    the frequency float64, the metrics histories float32."""
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype))
+
+    out = {"velocity": t(state["velocity"], np.float32),
+           "stage": t(state["stage"], np.int32),
+           "iteration": t(state["iteration"], np.int32)}
+    for key in ("search_dir", "grad_prev"):
+        if key in state:
+            out[key] = t(state[key], np.float32)
+    if "frequency" in state:
+        out["frequency"] = t(state["frequency"], np.float64)
+    if "metrics" in state:
+        out["metrics"] = {k: t(v, np.float32)
+                          for k, v in state["metrics"].items()}
+    return out

@@ -43,6 +43,16 @@ def breast_phantom(grid: Grid2D, c_bkgnd: float = C_BACKGROUND,
     return c.astype(np.float32)
 
 
+def disk_phantom(grid: Grid2D, radius: float, dc: float = 40.0,
+                 c_bkgnd: float = C_BACKGROUND, center=(0.0, 0.0)) -> np.ndarray:
+    """One homogeneous disk inclusion (the smallest inversion target)."""
+    X, Y = grid.meshgrid()
+    c = np.full(grid.shape, c_bkgnd, dtype=np.float64)
+    inside = (X - center[0]) ** 2 + (Y - center[1]) ** 2 <= radius ** 2
+    c[inside] = c_bkgnd + dc
+    return c.astype(np.float32)
+
+
 def smooth_blob_phantom(grid: Grid2D, radius: float, dc: float = 40.0,
                         c_bkgnd: float = C_BACKGROUND,
                         center=(0.0, 0.0)) -> np.ndarray:
@@ -51,3 +61,46 @@ def smooth_blob_phantom(grid: Grid2D, radius: float, dc: float = 40.0,
     r2 = (X - center[0]) ** 2 + (Y - center[1]) ** 2
     c = c_bkgnd + dc * np.exp(-r2 / (2 * (radius / 2.0) ** 2))
     return c.astype(np.float32)
+
+
+def phantom_from_image(grid: Grid2D, image: np.ndarray,
+                       pixel_size: float = 0.7e-3, threshold: float = 0.04,
+                       c_bkgnd: float = C_BACKGROUND, c_std: float = C_STD,
+                       rotation: float = 2.85 * np.pi) -> np.ndarray:
+    """Sound-speed map from a grayscale image by the reference recipe
+    (soundSpeedPhantom2D.m:12-31): normalize, floor values below
+    ``threshold`` to the above-threshold mean, de-mean, scale to
+    c_bkgnd +/- c_std, rotate, and resample bilinearly onto the grid
+    (background outside the image)."""
+    img = np.asarray(image, dtype=np.float64)
+    if img.ndim == 3:
+        img = img.mean(axis=-1)
+    img = img / img.max()
+    img[img <= threshold] = img[img >= threshold].mean()
+    img = img - img.mean()
+    img = img / np.abs(img).max()
+
+    ny, nx = img.shape
+    x_img = (np.arange(nx) - (nx - 1) / 2) * pixel_size
+    y_img = (np.arange(ny) - (ny - 1) / 2) * pixel_size
+    c_img = c_bkgnd + c_std * img
+
+    Xi, Yi = grid.meshgrid()
+    R = np.hypot(Xi, Yi)
+    T = np.arctan2(Yi, Xi) - rotation
+    xs, ys = R * np.cos(T), R * np.sin(T)
+
+    fx = (xs - x_img[0]) / pixel_size
+    fy = (ys - y_img[0]) / pixel_size
+    valid = (fx >= 0) & (fx <= nx - 1) & (fy >= 0) & (fy <= ny - 1)
+    fx = np.clip(fx, 0, nx - 1)
+    fy = np.clip(fy, 0, ny - 1)
+    ix = np.clip(fx.astype(int), 0, nx - 2)
+    iy = np.clip(fy.astype(int), 0, ny - 2)
+    wx = fx - ix
+    wy = fy - iy
+    interp = (c_img[iy, ix] * (1 - wx) * (1 - wy)
+              + c_img[iy, ix + 1] * wx * (1 - wy)
+              + c_img[iy + 1, ix] * (1 - wx) * wy
+              + c_img[iy + 1, ix + 1] * wx * wy)
+    return np.where(valid, interp, c_bkgnd).astype(np.float32)

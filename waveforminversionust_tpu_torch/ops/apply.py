@@ -31,6 +31,15 @@ def h_apply(coeffs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def h_apply_transpose(coeffs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Apply H^T without materializing transposed planes (scatter form)."""
+    out = coeffs[0] * u
+    for s in range(1, 9):
+        dy, dx = STENCIL_OFFSETS[s]
+        out = out + _shift(coeffs[s] * u, -dy, -dx)
+    return out
+
+
 def h_apply_adjoint(coeffs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Apply H^H without materializing transposed planes (scatter form)."""
     out = torch.conj(coeffs[0]) * u
@@ -53,3 +62,12 @@ def transpose_coefficients(coeffs: torch.Tensor) -> torch.Tensor:
 def adjoint_coefficients(coeffs: torch.Tensor) -> torch.Tensor:
     """Planes of H^H (conjugate transpose), for the gather-form apply."""
     return torch.conj(transpose_coefficients(coeffs)).resolve_conj()
+
+
+def dense_matrix(coeffs: torch.Tensor) -> torch.Tensor:
+    """H as a dense (ny*nx, ny*nx) matrix. Test and debug only."""
+    ny, nx = coeffs.shape[-2], coeffs.shape[-1]
+    n = ny * nx
+    eye = torch.eye(n, dtype=coeffs.dtype, device=coeffs.device)
+    cols = h_apply(coeffs, eye.reshape(n, ny, nx))  # H on every basis field
+    return cols.reshape(n, n).T

@@ -51,19 +51,35 @@ def _batched_pivot_inv(p: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def batched_inv(a: torch.Tensor, block: int = 32,
+def batched_inv(a: torch.Tensor, block: int = 32, pivot: str = "auto",
                 pivot_inv=None) -> torch.Tensor:
     """Inverse of a batch of complex matrices, (B, n, n) -> (B, n, n).
 
     Unpivoted blocked Gauss-Jordan in place (no augmentation): per panel
     one batched pivot inversion plus three batched products. n is padded
     to a multiple of ``block`` with an identity extension (inverted
-    exactly, then cropped). The pivot inverse of a CUDA tensor is the CUDA
-    kernel, of a CPU tensor its plain version; ``pivot_inv`` replaces both
-    (this routine again at a smaller ``block`` is the two-level blocking
-    that ``csrc/gj_pivot.cuh`` runs inside a thread block)."""
+    exactly, then cropped).
+
+    ``pivot`` selects the (block, block) pivot inverse, as in the
+    reference: "auto" the CUDA kernel on a CUDA tensor and its plain
+    version on a CPU tensor; "pallas" the CUDA kernel, which a CPU tensor
+    cannot take (it raises); "xla" the plain version everywhere.
+    ``pivot_inv`` replaces all three (this routine again at a smaller
+    ``block`` is the two-level blocking that ``csrc/gj_pivot.cuh`` runs
+    inside a thread block)."""
     if pivot_inv is None:
-        pivot_inv = batched_small_inv_kernel
+        if pivot == "auto":
+            pivot_inv = batched_small_inv_kernel
+        elif pivot == "pallas":
+            if a.device.type != "cuda":
+                raise ValueError(
+                    f"pivot='pallas' runs the CUDA kernel, and the batch is "
+                    f"on {a.device}; use 'auto' or 'xla' off the card")
+            pivot_inv = batched_small_inv_kernel
+        elif pivot == "xla":
+            pivot_inv = _batched_pivot_inv
+        else:
+            raise ValueError(f"unknown pivot impl {pivot!r}")
     B, n, _ = a.shape
     npanels = -(-n // block)
     npad = npanels * block

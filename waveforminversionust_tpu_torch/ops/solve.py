@@ -145,8 +145,11 @@ def banded_solve_refined(factor, rhs: torch.Tensor,
 def make_helmholtz_operator(vel, f, grid: Grid2D,
                             cfg: SolverConfig = SolverConfig(),
                             attenuation=None, pml_fields=None,
-                            mesh=None) -> HelmholtzOperator:
-    """Build the planes of H(vel) and factor them once."""
+                            mesh=None, grid_axis: str = "grid"
+                            ) -> HelmholtzOperator:
+    """Build the planes of H(vel) and factor them once. ``mesh`` /
+    ``grid_axis`` (grid-sharded solves) are ported with the multi-device
+    slice; ``mesh`` raises until then."""
     _check_method(cfg)
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device) is ported in a later "
@@ -165,7 +168,8 @@ def make_helmholtz_operator(vel, f, grid: Grid2D,
 def helmholtz_operator_solve(op: HelmholtzOperator, src, grid: Grid2D,
                              cfg: SolverConfig = SolverConfig(),
                              adjoint: bool = False, x0=None, mesh=None,
-                             precision=None, extra_refine=None):
+                             grid_axis: str = "grid", precision=None,
+                             extra_refine=None):
     """Solve H u = src (or H^H u = src) with a prepared operator; src is
     (batch, ny, nx) or (ny, nx) complex64.
 
@@ -173,6 +177,8 @@ def helmholtz_operator_solve(op: HelmholtzOperator, src, grid: Grid2D,
     runs FP32 here. ``x0`` is a Krylov warm start and unused by the banded
     method, as in the reference. ``extra_refine``: one more refinement pass
     against ``op.coeffs`` when true (frozen-factor CG, stale iterations).
+    ``mesh`` / ``grid_axis`` come with the multi-device slice; ``mesh``
+    raises until then.
     """
     _check_method(cfg)
     if mesh is not None:
