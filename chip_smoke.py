@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py            # the full check, about a minute on an H100
+    python3 chip_smoke.py            # the full check, ~1.5 minutes on an H100
     python3 chip_smoke.py --phases kernels,data,profile   # a subset
 
 Phases (any failure makes the exit code non-zero):
@@ -47,7 +47,21 @@ Phases (any failure makes the exit code non-zero):
      2 iterations and a live callback; then the kill-and-resume of
      tests/test_fwi.py (one stage of 4, killed after the first checkpoint,
      resumed) against the uninterrupted run;
-  8. profile (only when asked for): torch.profiler over 2 iterations of each
+  8. lbfgs: invert_dataset(method="lbfgs"), 5 iterations, memory 10, over
+     the differentiable solve (its backward the adjoint sweep): s/iter,
+     value-and-grad evaluations, loss, RMSE, peak memory, launches; the
+     first gradient against the plain path's (rel 1e-4), a central
+     difference along a smooth bump against <g, dp> (rel 0.12), and 2
+     iterations held against the plain path;
+  9. gn: invert_dataset(method="gn"), 3 outer iterations of 8 inner: s per
+     outer iteration, backtracks, inner residuals, monotone losses, RMSE,
+     launches; <J dm, r> against <dm, J^H r> at the start (rel 1e-4); 1
+     outer iteration held against the plain path;
+ 10. multifreq: invert_dataset(method="joint-multifreq") over the runner
+     phase's {300, 350 kHz} mapping, 3 iterations: s/iter, loss, RMSE,
+     launches (two factorizations a frequency an iteration); 2 iterations
+     held against the plain path;
+ 11. profile (only when asked for): torch.profiler over 2 iterations of each
      engine, device time by kernel name and the idle share.
 
 The last lines are a JSON object of the kernels, the card's name and power
@@ -766,17 +780,20 @@ class Smoke:
 
     def hold(self, what, bounds, loss, loss_ref, step, step_ref, vel, vel_ref):
         """Hold one trajectory to another within ``bounds``; returns the
-        failures."""
+        failures. ``step`` None: a method without a step history."""
         import torch
         loss, loss_ref = np.asarray(loss), np.asarray(loss_ref)
-        step, step_ref = np.asarray(step), np.asarray(step_ref)
         dl = float(np.max(np.abs(loss - loss_ref) / np.abs(loss_ref)))
-        ds = float(np.max(np.abs(step - step_ref) / np.abs(step_ref)))
+        ds = 0.0 if step is None else float(np.max(
+            np.abs(np.asarray(step) - np.asarray(step_ref))
+            / np.abs(np.asarray(step_ref))))
         dv = float(torch.max(torch.abs(vel - vel_ref)))
         atol = (bounds["vel_atol"] if bounds["vel_frac"] is None
                 else bounds["vel_frac"] * float(torch.max(torch.abs(vel_ref))))
+        step_note = ("no step history" if step is None else
+                     f"step {ds:.3e} ({bounds['step']:.0e})")
         log(f" {what}: max rel loss difference {dl:.3e} (held to "
-            f"{bounds['loss']:.0e}), step {ds:.3e} ({bounds['step']:.0e}), "
+            f"{bounds['loss']:.0e}), {step_note}, "
             f"max |velocity difference| {dv:.4e} m/s ({atol:.3f})")
         failed = []
         if not dl <= bounds["loss"]:
@@ -975,6 +992,21 @@ class Smoke:
                            torch.as_tensor(plain.velocity))
         self.check(not failed, f"{failed}")
 
+    def recordings(self):
+        """{300 kHz, 350 kHz: dataset}: the data phase's recording and one
+        at 300 kHz over the same phantom and ring, synthesized once."""
+        if not hasattr(self, "recs"):
+            from waveforminversionust_tpu_torch import synthesize_ring_dataset
+            from waveforminversionust_tpu_torch.models.phantom import breast_phantom
+            fine = data_grid()
+            t0 = time.perf_counter()
+            ds300 = synthesize_ring_dataset(breast_phantom(fine), fine,
+                                            self.acq_config, f=300e3, seed=0)
+            log(f" synthesized the 300 kHz recording in "
+                f"{time.perf_counter() - t0:.2f} s")
+            self.recs = {300e3: ds300, 350e3: self.ds}
+        return self.recs
+
     # -- phase 7 --------------------------------------------------------
     def runner(self):
         """invert_dataset's continuation, receiver calibration, chunked
@@ -984,22 +1016,15 @@ class Smoke:
         import torch
         from waveforminversionust_tpu_torch import (ContinuationConfig,
                                                     FWIConfig, SolverConfig,
-                                                    invert_dataset,
-                                                    synthesize_ring_dataset)
+                                                    invert_dataset)
         from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
         from waveforminversionust_tpu_torch.models.grid import Grid2D
-        from waveforminversionust_tpu_torch.models.phantom import breast_phantom
         from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
                                                         reset_kernel_launch_counts)
         from waveforminversionust_tpu_torch.utils import checkpoint
 
-        fine, grid = data_grid(), self.grid
-        t0 = time.perf_counter()
-        ds300 = synthesize_ring_dataset(breast_phantom(fine), fine,
-                                        self.acq_config, f=300e3, seed=0)
-        log(f" synthesized the 300 kHz recording in "
-            f"{time.perf_counter() - t0:.2f} s")
-        recs = {300e3: ds300, 350e3: self.ds}
+        grid = self.grid
+        recs = self.recordings()
         freqs = (300e3, 350e3)
         solver = SolverConfig(refactor_every=2)
         seen, ends = [], []
@@ -1084,7 +1109,254 @@ class Smoke:
                            torch.as_tensor(full.velocity))
         self.check(not failed, f"{failed}")
 
-    # -- phase 8 --------------------------------------------------------
+    # -- phases 8-10 ----------------------------------------------------
+    def run_method(self, name, method, dataset, n_iter, uses,
+                   timed=contextlib.nullcontext, **kw):
+        """invert_dataset(method=...) with no device named, at the main
+        path's grid from 1480 m/s: a 1-iteration warm-up, then the timed
+        run of ``n_iter`` (inside the context ``timed()``) between a reset
+        and a reading of the launch counts. ``uses``: the kernels it must
+        launch, every other at 0. Returns (result, seconds, counts)."""
+        import torch
+        from waveforminversionust_tpu_torch import FWIConfig, invert_dataset
+        from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+
+        def run(n):
+            return invert_dataset(dataset, grid=self.grid,
+                                  fwi=FWIConfig(num_iterations=n),
+                                  method=method, **kw)
+
+        t0 = time.perf_counter()
+        run(1)
+        torch.cuda.synchronize()
+        log(f" warm-up run (1 iteration): {time.perf_counter() - t0:.2f} s")
+        with timed():
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launch_counts()
+            t0 = time.perf_counter()
+            res = run(n_iter)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            counts = kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        loss = res.metrics["loss"]
+        true_grid = Grid2D.from_arrays(self.ds.x, self.ds.y)
+        rmse0 = reconstruction_rmse(np.full(self.grid.shape, FWIConfig().c_init),
+                                    self.grid, self.ds.c, true_grid)
+        rmse = reconstruction_rmse(res.velocity, self.grid, self.ds.c, true_grid)
+        log(f" s/iter {elapsed / n_iter:.6f} ({n_iter} iterations, "
+            f"{elapsed:.4f} s); peak device memory {peak / 2**20:.1f} MiB")
+        log(f" loss {loss.tolist()}")
+        log(f" rmse start {rmse0:.4f} m/s end {rmse:.4f} m/s")
+        log(f" kernel launches in the timed run: {counts}")
+        self.slices[name] = dict(method=method, s_per_iter=elapsed / n_iter,
+                                 iterations=n_iter, rmse_start=rmse0,
+                                 rmse_end=rmse, loss=loss.tolist(),
+                                 launches=counts,
+                                 peak_memory_mib=peak / 2**20)
+        for k in KERNELS:
+            self.launches[k] += counts[k]
+        self.check(np.all(np.isfinite(loss)), f"loss not finite: {loss}")
+        self.check(rmse < rmse0, f"rmse {rmse} not below the start {rmse0}")
+        self.check(all(counts[k] > 0 for k in uses)
+                   and all(n == 0 for k, n in counts.items() if k not in uses),
+                   f"launches {counts}: the path's kernels {uses} only")
+        return res, elapsed, counts
+
+    def kernel_vs_plain(self, what, fn, bounds):
+        """Hold fn(solver) through the kernels against fn(plain solver) on
+        the same CUDA tensors: (loss, step or None, velocity) each."""
+        import torch
+        from waveforminversionust_tpu_torch.config import SolverConfig
+        lk, sk, vk = fn(SolverConfig())
+        with plain_engines():
+            lp, sp, vp = fn(SolverConfig(factorization="thomas",
+                                         fused_apply="off"))
+        log(f" {what}: loss kernel {np.asarray(lk).tolist()} plain "
+            f"{np.asarray(lp).tolist()}")
+        failed = self.hold(what, bounds, lk, lp, sk, sp, torch.as_tensor(vk),
+                           torch.as_tensor(vp))
+        self.check(not failed, f"{failed}")
+
+    def lbfgs(self):
+        """invert_dataset(method="lbfgs"): 5 iterations, memory 10, over
+        the differentiable solve (K1, K2 forward, K2 adjoint in the
+        backward, K3 for the residual diagnostic)."""
+        import torch
+        from waveforminversionust_tpu_torch import FWIConfig, invert_dataset
+        from waveforminversionust_tpu_torch.config import SolverConfig
+        from waveforminversionust_tpu_torch.fwi import lbfgs
+
+        grid, data, vel0 = self._setup()
+        calls = []
+        real = lbfgs.fwi_loss
+
+        def counted(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        n_iter = 5
+        self.run_method("lbfgs", "lbfgs", self.ds, n_iter,
+                        ("factor", "sweep", "stencil"),
+                        timed=lambda: mock.patch.object(lbfgs, "fwi_loss",
+                                                        counted))
+        evals = len(calls)
+        log(f" value-and-grad evaluations: {evals} in {n_iter} iterations "
+            f"({evals / n_iter:.2f} an iteration, one at each iteration's "
+            f"start and one a line-search trial)")
+        self.slices["lbfgs"]["evaluations"] = evals
+        loss = np.asarray(self.slices["lbfgs"]["loss"])
+        self.check(loss[-1] < loss[0], f"loss not decreasing: {loss}")
+
+        # The normalized objective of run_lbfgs in dimensionless slowness.
+        slow0 = (1.0 / vel0).reshape(-1)
+        slow_ref = torch.mean(slow0)
+        norm = 0.5 * torch.sum(torch.abs(data.rec_obs) ** 2)
+
+        def objective(solver):
+            return lambda p: real(p * slow_ref, data, grid, solver) / norm
+
+        p0 = slow0 / slow_ref
+        t0 = time.perf_counter()
+        value, g = lbfgs._value_and_grad(objective(SolverConfig()), p0)
+        torch.cuda.synchronize()
+        grad_ms = (time.perf_counter() - t0) * 1e3
+        with plain_engines():
+            t0 = time.perf_counter()
+            value_p, g_p = lbfgs._value_and_grad(objective(SolverConfig(
+                factorization="thomas", fused_apply="off")), p0)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        rel = rel_err(g, g_p)
+        log(f" first value and gradient: kernel path {grad_ms:.1f} ms, plain "
+            f"path {plain_ms:.1f} ms; gradient rel {rel:.3e} (held to 1e-4), "
+            f"value {float(value):.6e} vs {float(value_p):.6e}")
+        self.check(rel < 1e-4, f"first gradient differs by {rel}")
+
+        # A central difference along a smooth bump inside the ring against
+        # <g, dp> (tests/test_adjoint_vjp.py:59: rel 0.12).
+        X, Y = grid.meshgrid()
+        dp = torch.as_tensor(np.exp(-((X - 0.01) ** 2 + (Y + 0.02) ** 2)
+                                    / (2 * 0.015 ** 2)).astype(np.float32),
+                             device=p0.device).reshape(-1)
+        eps = 1e-3
+        f = objective(SolverConfig())
+        with torch.no_grad():
+            fd = float(f(p0 + eps * dp) - f(p0 - eps * dp)) / (2 * eps)
+        got = float(torch.dot(g, dp))
+        log(f" directional derivative: <g, dp> {got:.6e}, central "
+            f"difference {fd:.6e} (eps {eps}), rel {abs(got - fd) / abs(fd):.3e} "
+            f"(held to 0.12)")
+        self.check(abs(got - fd) <= 0.12 * abs(fd), f"<g, dp> {got} vs {fd}")
+
+        def two(solver):
+            r = invert_dataset(self.ds, grid=grid, solver=solver,
+                               fwi=FWIConfig(num_iterations=2), method="lbfgs")
+            return r.metrics["loss"], None, r.velocity
+
+        self.kernel_vs_plain("lbfgs, 2 iterations, kernel path vs plain path",
+                             two, GOLDEN)
+
+    def gn(self):
+        """invert_dataset(method="gn"): 3 outer iterations of 8 inner (K1
+        an outer iteration and a trial, K2 for every J and J^H; no K3 at
+        refine=0)."""
+        import torch
+        from waveforminversionust_tpu_torch import FWIConfig, invert_dataset
+        from waveforminversionust_tpu_torch.config import SolverConfig
+        from waveforminversionust_tpu_torch.fwi import newton
+        from waveforminversionust_tpu_torch.ops.solve import (
+            helmholtz_operator_solve, make_helmholtz_operator)
+
+        stages = []
+        n_iter = 3
+        _, elapsed, _ = self.run_method(
+            "gn", "gn", self.ds, n_iter, ("factor", "sweep"),
+            callback=lambda i, f, v, m: stages.append(m))
+        m = stages[-1]
+        loss = np.asarray(m.loss)
+        log(f" s per outer iteration {elapsed / n_iter:.6f}; backtracks "
+            f"{m.backtracks.tolist()}; cg_relres {m.cg_relres.tolist()}; "
+            f"step {m.step_size.tolist()}")
+        self.slices["gn"].update(backtracks=m.backtracks.tolist(),
+                                 cg_relres=m.cg_relres.tolist())
+        self.check(np.all(np.diff(loss) <= 1e-6 * loss[0]),
+                   f"losses not monotone: {loss}")
+
+        # The adjoint identity of the Frechet pair at the start, on the
+        # normalized data as run_gauss_newton sees it.
+        grid, data, vel0 = self._setup()
+        s_d = newton._data_normalization(data.rec_obs)
+        data = data._replace(src=data.src * s_d, rec_obs=data.rec_obs * s_d)
+        solver = SolverConfig()
+        op = make_helmholtz_operator(vel0, data.f, grid, solver)
+        wv = helmholtz_operator_solve(op, data.src, grid, solver)
+        jv, jt, _ = newton.make_frechet_operators(op, data, grid, solver,
+                                                  1.0 / vel0, wv)
+        rng = np.random.default_rng(3)
+        dm = torch.as_tensor(rng.standard_normal(grid.shape).astype(np.float32),
+                             device=vel0.device)
+        r = torch.as_tensor((rng.standard_normal(data.rec_obs.shape)
+                             + 1j * rng.standard_normal(data.rec_obs.shape)
+                             ).astype(np.complex64), device=vel0.device)
+        jdm = jv(dm)
+        lhs = float(torch.sum(jdm.real * r.real + jdm.imag * r.imag))
+        rhs = float(torch.sum(dm * jt(r)))
+        rel = abs(lhs - rhs) / abs(rhs)
+        log(f" <J dm, r> {lhs:.8e} vs <dm, J^H r> {rhs:.8e}: rel {rel:.3e} "
+            f"(held to 1e-4)")
+        self.check(rel < 1e-4, f"adjoint identity off by {rel}")
+        del op, wv, jv, jt
+
+        def one(solver):
+            r = invert_dataset(self.ds, grid=grid, solver=solver,
+                               fwi=FWIConfig(num_iterations=1), method="gn")
+            return r.metrics["loss"], None, r.velocity
+
+        self.kernel_vs_plain("gn, 1 outer iteration, kernel path vs plain "
+                             "path", one, GOLDEN)
+
+    def multifreq(self):
+        """invert_dataset(method="joint-multifreq") over {300, 350 kHz}: two
+        K1 and three K2 a frequency an iteration, no K3 at refine=0."""
+        from waveforminversionust_tpu_torch import FWIConfig, invert_dataset
+        from waveforminversionust_tpu_torch.ops import (kernel_factor,
+                                                        kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+        from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
+
+        recs = self.recordings()
+        grid, _, vel0 = self._setup()
+        reset_kernel_launch_counts()
+        kernel_factor.banded_factor_kernel(helmholtz_coefficients(vel0, grid,
+                                                                  350e3))
+        per_factor = kernel_launch_counts()["factor"]
+        n_iter, nf = 3, len(recs)
+        res, _, counts = self.run_method("multifreq", "joint-multifreq", recs,
+                                         n_iter, ("factor", "sweep"))
+        loss = res.metrics["loss"]
+        self.check(res.frequencies == (300e3, 350e3),
+                   f"frequencies {res.frequencies}")
+        self.check(loss[-1] < loss[0], f"loss not decreasing: {loss}")
+        want = 2 * nf * n_iter * per_factor
+        log(f" factor launches {counts['factor']} (2 factorizations x {nf} "
+            f"frequencies x {n_iter} iterations x {per_factor} = {want}); "
+            f"sweeps {counts['sweep']}")
+        self.check(counts["factor"] == want, f"factor launches {counts}")
+
+        def two(solver):
+            r = invert_dataset(recs, grid=grid, solver=solver,
+                               fwi=FWIConfig(num_iterations=2),
+                               method="joint-multifreq")
+            return r.metrics["loss"], r.metrics["step_size"], r.velocity
+
+        self.kernel_vs_plain("joint-multifreq, 2 iterations, kernel path vs "
+                             "plain path", two, GOLDEN)
+
+    # -- phase 11 -------------------------------------------------------
     def profile(self):
         """torch.profiler over 2 iterations (one factored, one stale) of
         each engine: device time by kernel name, and the idle share."""
@@ -1136,16 +1408,18 @@ def nvidia_smi(query="name,power.limit") -> str:
 
 
 SLICES = ("slice", "slice_twisted", "slice_cr")
-PATHS = SLICES + ("parity", "intake", "runner", "profile")
+PATHS = SLICES + ("parity", "intake", "runner", "lbfgs", "gn", "multifreq",
+                  "profile")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,data,slice,slice_twisted,slice_cr,"
-                            "parity,intake,runner",
+                            "parity,intake,runner,lbfgs,gn,multifreq",
                     help="comma-separated subset of kernels,data,slice,"
-                         "slice_twisted,slice_cr,parity,intake,runner,profile")
+                         "slice_twisted,slice_cr,parity,intake,runner,lbfgs,"
+                         "gn,multifreq,profile")
     args = ap.parse_args(argv)
 
     import torch

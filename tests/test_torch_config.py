@@ -43,15 +43,22 @@ def test_enums_match(name):
 
 
 def test_port_import_leaves_jax_out():
-    """Every module of the port, and chip_smoke.py, import without JAX."""
+    """Every module of the port, and chip_smoke.py, import without JAX,
+    without optax (the port keeps its own L-BFGS) and without the JAX
+    package; the modules of the differentiable solve and of the L-BFGS,
+    Gauss-Newton, resolution and joint multi-frequency paths by name."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import waveforminversionust_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('ops.solve', 'fwi.lbfgs', 'fwi.newton', 'fwi.resolution',\n"
+        "          'fwi.multifreq', 'fwi.runner'):\n"
+        "    importlib.import_module('waveforminversionust_tpu_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m.startswith('jaxlib') or m == 'waveforminversionust_tpu'\n"
+        "       or m.startswith('jaxlib') or m == 'optax'\n"
+        "       or m.startswith('optax.') or m == 'waveforminversionust_tpu'\n"
         "       or m.startswith('waveforminversionust_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -473,3 +473,97 @@ def test_engine_launch_counts(cuda, factorization):
     else:
         want = dict(NO_LAUNCHES, batched_inv=len(fac.levels) + 1)
     assert kernel_launch_counts() == want
+
+
+# -- the differentiable solve through the kernels (on a card) ----------------
+
+def _plain_engine(monkeypatch, factorization):
+    """The plain configuration of ``factorization`` with every kernel
+    wrapper that engine reaches routed to its plain version, so that the
+    plain functions run on the same CUDA tensors."""
+    monkeypatch.setattr(tsolve, "twisted_factor_kernel", twisted.twisted_factor)
+    monkeypatch.setattr(tsolve, "twisted_solve_kernel", twisted.twisted_solve)
+    monkeypatch.setattr(batched_inv, "batched_small_inv_kernel",
+                        batched_inv._batched_pivot_inv)
+    return SolverConfig(factorization="thomas" if factorization == "auto"
+                        else factorization, fused_apply="off",
+                        pml=PMLConfig(l_pml=2.4e-3))
+
+
+def _solve_grads(cuda, cfg, adjoint, warm):
+    """d/dvel and d/dsrc of a weighted |u|^2 through solve_helmholtz on a
+    31x31 grid, 3 sources; with ``warm`` from a warm start 2% off."""
+    grid = Grid2D.centered(12e-3, 0.8e-3)
+    vel = torch.tensor(smooth_blob_phantom(grid, radius=4e-3, dc=60),
+                       device=cuda, requires_grad=True)
+    src = _fields(11, (3,) + grid.shape, cuda).requires_grad_(True)
+    x0 = None
+    if warm:
+        with torch.no_grad():
+            x0 = 1.02 * tsolve.solve_helmholtz(vel, src, F, grid, cfg,
+                                               adjoint=adjoint)[0]
+    u, _ = tsolve.solve_helmholtz(vel, src, F, grid, cfg, adjoint=adjoint,
+                                  x0=x0)
+    w = 1.0 + 0.3 * torch.cos(torch.arange(u.numel(), device=cuda,
+                                           dtype=torch.float32)).reshape(u.shape)
+    torch.sum(torch.abs(u) ** 2 * w).backward()
+    return vel.grad, src.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("factorization", ["auto", "twisted", "cr"])
+def test_solve_gradient_through_kernels_matches_plain(cuda, monkeypatch,
+                                                      factorization, adjoint,
+                                                      warm):
+    """The gradient of a loss through each engine's kernels (the forward
+    factor and sweeps, the backward's adjoint sweeps, K3 in the warm
+    start's differentiable residual) == the plain path's on the same CUDA
+    tensors: relative error < 1e-4."""
+    cfg = SolverConfig(factorization=factorization, pml=PMLConfig(l_pml=2.4e-3))
+    reset_kernel_launch_counts()
+    kv, ks = _solve_grads(cuda, cfg, adjoint, warm)
+    torch.cuda.synchronize()
+    counts = kernel_launch_counts()
+    if factorization == "auto":
+        assert counts["factor"] > 0 and counts["sweep"] >= 2
+    elif factorization == "twisted":
+        assert counts["twisted_factor"] > 0 and counts["twisted_sweep"] >= 4
+    else:
+        assert counts["batched_inv"] > 0
+    plain = _plain_engine(monkeypatch, factorization)
+    reset_kernel_launch_counts()
+    pv, ps = _solve_grads(cuda, plain, adjoint, warm)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == NO_LAUNCHES
+    assert _rel(kv, pv) < 1e-4
+    assert _rel(ks, ps) < 1e-4
+
+
+@pytest.mark.cuda
+def test_lbfgs_evaluation_launch_counts(cuda):
+    """One L-BFGS value-and-grad through the kernels: one factorization
+    (3 launches a row on 31x31), a forward and an adjoint solve (one
+    launch each) and the residual diagnostic's apply, nothing of the
+    other engines; its gradient is finite."""
+    from waveforminversionust_tpu_torch.fwi import lbfgs
+    from waveforminversionust_tpu_torch.fwi.objective import FWIData
+
+    grid = Grid2D.centered(12e-3, 0.8e-3)
+    ny, nx = grid.shape
+    ntx = 4
+    src = _fields(12, (ntx, ny, nx), cuda)
+    rx_y = torch.tensor([[3, 5, ny - 4]] * ntx, device=cuda)
+    rx_x = torch.tensor([[4, nx - 5, 7]] * ntx, device=cuda)
+    data = FWIData(src=src, rec_obs=_fields(13, (ntx, 3), cuda), rx_y=rx_y,
+                   rx_x=rx_x, f=F)
+    cfg = SolverConfig(pml=PMLConfig(l_pml=2.4e-3))
+    reset_kernel_launch_counts()
+    value, grad = lbfgs._value_and_grad(
+        lambda s: lbfgs.fwi_loss(s, data, grid, cfg),
+        torch.full((ny * nx,), 1 / 1500.0, device=cuda))
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=3 * ny, sweep=2,
+                                          stencil=1)
+    assert bool(torch.isfinite(value)) and bool(torch.all(torch.isfinite(grad)))

@@ -42,7 +42,7 @@ from waveforminversionust_tpu_torch import interop
 from waveforminversionust_tpu_torch.config import (AcquisitionConfig,
                                                    ContinuationConfig,
                                                    FWIConfig, PMLConfig,
-                                                   SolverConfig)
+                                                   SolverConfig, SolverMethod)
 from waveforminversionust_tpu_torch.data.synthesize import \
     synthesize_ring_dataset
 from waveforminversionust_tpu_torch.fwi import calibrate, optimizers, runner
@@ -380,18 +380,28 @@ def test_inversion_state_converts_a_jax_state():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(method="lbfgs"), NotImplementedError, "A3"),
-    (dict(method="gn"), NotImplementedError, "A3"),
-    (dict(method="joint-multifreq"), NotImplementedError, "A3"),
+    (dict(method="lbfgs", solver=SolverConfig(method=SolverMethod.GMRES)),
+     NotImplementedError, "A3"),
+    (dict(method="gn", solver=SolverConfig(method=SolverMethod.BORN)),
+     NotImplementedError, "A3"),
+    (dict(method="joint-multifreq",
+          solver=SolverConfig(method=SolverMethod.GMRES)),
+     NotImplementedError, "A3"),
     (dict(mesh=object()), NotImplementedError, "slice 7"),
     (dict(method="newton"), ValueError, "unknown method"),
+    (dict(method="gn", mesh=object()), NotImplementedError, "slice 7"),
 ])
 def test_later_slices_raise(recordings, kw, exc, match):
-    """The methods and the mesh of later slices raise and name them; an
-    unknown method is a ValueError, as in the reference."""
+    """The solvers and the mesh of later slices raise and name them under
+    every method (the GMRES and Born solvers ROADMAP.md A3, the mesh slice
+    7); an unknown method is a ValueError, as in the reference. The joint
+    method runs on the {frequency: dataset} mapping."""
     coarse, recs = recordings
+    data = recs if kw.get("method") == "joint-multifreq" else recs[FREQS[0]]
     with pytest.raises(exc, match=match):
-        runner.invert_dataset(recs[FREQS[0]], grid=coarse, device="cpu", **kw)
+        runner.invert_dataset(data, grid=coarse,
+                              acquisition=AcquisitionConfig(**ACQ),
+                              device="cpu", **kw)
 
 
 # -- C6: signatures shared with the reference -------------------------------
@@ -401,6 +411,7 @@ MODULES = ["models.acquisition", "models.phantom",
            "ops.apply", "ops.banded", "ops.twisted", "ops.cyclic",
            "ops.batched_inv", "ops.solve", "fwi.objective", "fwi.optimizers",
            "fwi.regularization", "fwi.calibrate", "fwi.runner",
+           "fwi.lbfgs", "fwi.newton", "fwi.resolution", "fwi.multifreq",
            "utils.checkpoint"]
 # Parameters the port adds, beside the entry points' ``device=``, and why.
 ALLOWED = {
@@ -417,7 +428,8 @@ def test_signatures_match_reference(module):
     takes the reference's parameters in the reference's order, with the
     same plain defaults; the port may add ``device`` and what ALLOWED
     lists. Functions of the JAX package the port does not have yet are
-    not compared (they are queued in ROADMAP.md A)."""
+    not compared (they are queued in ROADMAP.md A). A twin wrapped in
+    ``jax.jit`` is compared through the function it wraps."""
     port = importlib.import_module(f"waveforminversionust_tpu_torch.{module}")
     ref = importlib.import_module(f"waveforminversionust_tpu.{module}")
     compared = 0
@@ -425,6 +437,8 @@ def test_signatures_match_reference(module):
         # The port carries complex64 where the reference has only its
         # split (re, im) form, named ``*_cpx`` (ops/cyclic.py).
         twin = getattr(ref, name, getattr(ref, f"{name}_cpx", None))
+        if twin is not None and not inspect.isfunction(twin):
+            twin = inspect.unwrap(twin)
         if (name.startswith("_") or not inspect.isfunction(fn)
                 or fn.__module__ != port.__name__
                 or not inspect.isfunction(twin)):

@@ -2,8 +2,10 @@
 full-waveform inversion for ring-array ultrasound tomography on an NVIDIA
 H100, with hand-written CUDA kernels for the block-Thomas and twisted
 factorizations, their solve sweeps, the batched pivot inverse of cyclic
-reduction and the 9-point operator apply (``csrc/``). The entry points run
-on the card unless the caller passes ``device="cpu"``.
+reduction and the 9-point operator apply (``csrc/``). The Helmholtz solve
+is differentiable by ``torch.autograd``, its backward one adjoint solve
+through the forward's factor. The entry points run on the card unless the
+caller passes ``device="cpu"``.
 
 The JAX package beside it is the reference; this package imports ``torch``
 and never ``jax``. All math is FP32 (complex64). TF32 is off for matrix
@@ -23,6 +25,11 @@ from .data.synthesize import RingDataset, synthesize_ring_dataset  # noqa: E402
 from .device import default_device  # noqa: E402
 from .fwi.calibrate import (CalibrationResult,  # noqa: E402
                             background_misfit_fn, calibrate_background_speed)
+from .fwi.lbfgs import run_lbfgs  # noqa: E402
+from .fwi.multifreq import (MultiFreqData,  # noqa: E402
+                            nonlinear_cg_multifreq, stack_frequencies)
+from .fwi.newton import (GNResult, make_frechet_operators,  # noqa: E402
+                         run_gauss_newton)
 from .fwi.objective import FWIData, build_fwi_data  # noqa: E402
 from .fwi.optimizers import CGResult, nonlinear_cg  # noqa: E402
 from .fwi.runner import (default_inversion_grid, invert_dataset,  # noqa: E402

@@ -1,7 +1,8 @@
 """FWI data and objective pieces (port of
 ``waveforminversionust_tpu.fwi.objective``): receiver sampling, adjoint
 sources, source-strength estimation, the masked L2 misfit, the virtual
-source and illumination preconditioning.
+source, the mass spread of the exact Frechet derivative and illumination
+preconditioning.
 
 All receiver arrays are masked to the active receivers, (ntx, n_active);
 receiver (tx, j) reads pixel (rx_y[tx, j], rx_x[tx, j]).
@@ -14,6 +15,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import default_device
 from ..models.acquisition import RingAcquisition
@@ -116,6 +118,23 @@ def illumination_map(wavefields):
 def precondition_gradient(grad, illum, eps_frac):
     """grad / (illum + eps_frac * max(illum))."""
     return grad / (illum + eps_frac * torch.max(illum))
+
+
+def mass_spread(fields, d, e):
+    """The optimal 9-point scheme's mass-distribution stencil
+    ``W = {center: 1-d-e, edges: d/4, corners: e/4}`` applied as a symmetric
+    9-point correlation over the trailing (ny, nx) axes, zero outside. The
+    operator carries ``C k^2`` on all nine legs, so the exact discrete
+    Frechet derivative dH/dslowness spreads the virtual source with these
+    weights; W is symmetric, so it is its own adjoint."""
+    wc, wd, we = 1.0 - d - e, d / 4.0, e / 4.0
+    pp = F.pad(fields, (1, 1, 1, 1))
+    c = pp[..., 1:-1, 1:-1]
+    edges = (pp[..., 1:-1, :-2] + pp[..., 1:-1, 2:]
+             + pp[..., :-2, 1:-1] + pp[..., 2:, 1:-1])
+    corners = (pp[..., :-2, :-2] + pp[..., :-2, 2:]
+               + pp[..., 2:, :-2] + pp[..., 2:, 2:])
+    return wc * c + wd * edges + we * corners
 
 
 def virtual_source(slowness, wavefields, f, alpha_signed=None):

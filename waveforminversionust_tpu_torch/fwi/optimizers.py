@@ -166,7 +166,7 @@ def make_cg_step(data: FWIData, grid: Grid2D, solver: SolverConfig,
     if solver.method != SolverMethod.BANDED:
         raise NotImplementedError(
             f"method={solver.method.value!r} is ported in a later slice "
-            f"(ROADMAP.md A, slice 3)")
+            f"(ROADMAP.md A3)")
     _validate_watchdog(fwi)
     regularize = make_cg_regularizer(grid, fwi)
     K = solver.refactor_every

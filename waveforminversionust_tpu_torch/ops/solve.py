@@ -1,6 +1,9 @@
 """Helmholtz solves through a direct factor: block-Thomas, twisted or
 cyclic reduction (port of the banded subset of
-``waveforminversionust_tpu/ops/solve.py``).
+``waveforminversionust_tpu/ops/solve.py``). ``solve_helmholtz`` is
+differentiable by ``torch.autograd`` (the reference's custom VJP as
+``_FDSolve``: the backward is one adjoint solve through the forward's
+factor).
 
 Boundary-row bookkeeping, as in the reference: the planes describe the
 balanced operator H_s = D H, D = diag(1/h^2 on the border, 1 inside).
@@ -23,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import SolverConfig, SolverMethod
 from ..models.grid import Grid2D
@@ -34,6 +38,7 @@ from .kernel_stencil import h_apply_kernel
 from .kernel_sweep import banded_solve_kernel
 from .kernel_twisted import twisted_factor_kernel, twisted_solve_kernel
 from .twisted import TwistedFactor
+from .stencil import STENCIL_OFFSETS
 from .stencil import d_map as _d_map
 from .stencil import helmholtz_coefficients
 
@@ -61,8 +66,8 @@ def _check_method(cfg: SolverConfig):
     if cfg.method != SolverMethod.BANDED:
         raise NotImplementedError(
             f"method={cfg.method.value!r}: the GMRES and Born solvers are "
-            f"ported in a later slice (ROADMAP.md A, slice 3); use the "
-            f"banded method")
+            f"ported in a later slice (ROADMAP.md A3); use the banded "
+            f"method")
 
 
 def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig):
@@ -197,14 +202,100 @@ def helmholtz_operator_solve(op: HelmholtzOperator, src, grid: Grid2D,
     return u[0] if single else u
 
 
+def _plane_cotangent(lam: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """sum_b lam * conj(shift_s(u)) for each of the nine stencil slots
+    (9, ny, nx): the cotangent of the planes of ``out = H u`` for an output
+    cotangent ``lam`` (PyTorch's convention, the one the reference's split
+    engine uses, ``ops/solve.py:220-247``)."""
+    up = F.pad(torch.conj(u), (1, 1, 1, 1))
+    ny, nx = u.shape[-2], u.shape[-1]
+    return torch.stack([
+        torch.sum(lam * up[:, 1 + dy:1 + dy + ny, 1 + dx:1 + dx + nx], dim=0)
+        for dy, dx in STENCIL_OFFSETS])
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in plain memory for a kernel that reads its pointer: autograd
+    may hand a backward a lazily conjugated or negated view."""
+    return t.resolve_conj().resolve_neg().contiguous()
+
+
+class _FDSolve(torch.autograd.Function):
+    """u = H_s^-1 rhs through one direct factor, differentiable in the
+    planes and the right-hand side (port of the reference's custom VJP,
+    ``ops/solve.py:124-250``). The factor is kept for the backward, which
+    is one solve through its ADJOINT sweeps, whatever its engine:
+
+        lam = H_s^-H u_bar;  rhs_bar = lam;
+        coeffs_bar[s] = -sum_b lam * conj(shift_s(u))
+
+    PyTorch hands the backward dL/d conj(u), so this is the Hermitian
+    solve of the reference's split engine, not the transpose solve of its
+    native one. A planes argument that holds H_s^H (an adjoint solve) needs
+    nothing else: (H_s^H)^H = H_s, and the factor's adjoint sweeps solve
+    it."""
+
+    @staticmethod
+    def forward(ctx, coeffs, rhs, cfg):
+        factor = factor_operator(_dense(coeffs), cfg)
+        u = banded_solve_refined(factor, _dense(rhs), cfg, adjoint=False)
+        ctx.factor, ctx.cfg = factor, cfg
+        ctx.save_for_backward(u)
+        return u
+
+    @staticmethod
+    def backward(ctx, u_bar):
+        (u,) = ctx.saved_tensors
+        factor, cfg = ctx.factor, ctx.cfg
+        ctx.factor = None  # G is ~218 MB at 301^2: free it now
+        lam = banded_solve_refined(factor, _dense(u_bar), cfg, adjoint=True)
+        coeffs_bar = (-_plane_cotangent(lam, u) if ctx.needs_input_grad[0]
+                      else None)
+        return coeffs_bar, lam, None
+
+
+class _Apply(torch.autograd.Function):
+    """out = H v through the CUDA stencil kernel (the plain apply on CPU
+    tensors), differentiable in the planes and v: v_bar = H^H out_bar (the
+    kernel on the adjoint planes), coeffs_bar[s] = sum_b out_bar *
+    conj(shift_s(v))."""
+
+    @staticmethod
+    def forward(ctx, coeffs, v):
+        ctx.save_for_backward(coeffs, v)
+        return h_apply_kernel(_dense(coeffs), _dense(v))
+
+    @staticmethod
+    def backward(ctx, out_bar):
+        coeffs, v = ctx.saved_tensors
+        out_bar = _dense(out_bar)
+        v_bar = coeffs_bar = None
+        if ctx.needs_input_grad[1]:
+            v_bar = h_apply_kernel(apply.adjoint_coefficients(coeffs), out_bar)
+        if ctx.needs_input_grad[0]:
+            coeffs_bar = _plane_cotangent(out_bar, v)
+        return coeffs_bar, v_bar
+
+
 def solve_helmholtz(vel, src, f, grid: Grid2D,
                     config: SolverConfig = SolverConfig(),
                     adjoint: bool = False, x0=None, attenuation=None):
     """Solve H(vel) u = src (or H^H u = src) for a batch of sources, one
     factorization per call; returns (u, SolveInfo) with the true relative
     residual per source. The adjoint factors the H_s^H planes and solves
-    in balanced w-space (u = D w), as the reference does. ``x0``: solve
-    for the correction from a warm start."""
+    in balanced w-space (u = D w), as the reference does.
+
+    Differentiable in ``vel``, ``src`` and ``attenuation`` by
+    ``torch.autograd``: the solve is :class:`_FDSolve`, whose backward is
+    one adjoint solve through the forward's own factor; the planes'
+    cotangent flows into ``vel`` and ``attenuation`` through
+    :func:`helmholtz_coefficients`. A complex ``src`` receives
+    dL/d conj(src), the conjugate of what ``jax.grad`` returns.
+
+    ``x0``: warm start, held constant. The solve is then for the
+    correction from x0, and the residual src - H x0 stays differentiable
+    in the planes, so the gradient is that of the cold solve. The residual
+    diagnostic is computed outside the graph."""
     _check_method(config)
     vel = torch.as_tensor(vel, dtype=torch.float32)
     src = torch.as_tensor(src).to(device=vel.device, dtype=torch.complex64)
@@ -217,22 +308,23 @@ def solve_helmholtz(vel, src, f, grid: Grid2D,
         coeffs = apply.adjoint_coefficients(coeffs)
     dmap = _d_map(grid, vel.device)
     rhs = src if adjoint else src * dmap
-    factor = factor_operator(coeffs, config)
-    opfn = make_apply(coeffs, config)
     if x0 is not None:
-        x0 = torch.as_tensor(x0).to(device=vel.device, dtype=torch.complex64)
+        x0 = torch.as_tensor(x0).detach().to(device=vel.device,
+                                             dtype=torch.complex64)
         if x0.dim() == 2:
             x0 = x0[None]
         if adjoint:
             x0 = x0 / dmap
-        w = x0 + banded_solve_refined(factor, (rhs - opfn(x0)).contiguous(),
-                                      config, adjoint=False)
+        r0 = rhs - (apply.h_apply(coeffs, x0) if config.fused_apply == "off"
+                    else _Apply.apply(coeffs, x0))
+        w = x0 + _FDSolve.apply(coeffs, r0, config)
     else:
-        w = banded_solve_refined(factor, rhs.contiguous(), config,
-                                 adjoint=False)
-    res = opfn(w) - rhs
-    rel = torch.sqrt(torch.sum(torch.abs(res) ** 2, dim=(1, 2))
-                     / torch.clamp(torch.sum(torch.abs(rhs) ** 2, dim=(1, 2)),
-                                   min=1e-38))
+        w = _FDSolve.apply(coeffs, rhs, config)
+    with torch.no_grad():
+        res = make_apply(coeffs.detach(), config)(w.detach()) - rhs.detach()
+        rel = torch.sqrt(
+            torch.sum(torch.abs(res) ** 2, dim=(1, 2))
+            / torch.clamp(torch.sum(torch.abs(rhs.detach()) ** 2, dim=(1, 2)),
+                          min=1e-38))
     u = w * dmap if adjoint else w
     return (u[0] if single else u), SolveInfo(rel, -1)
