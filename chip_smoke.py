@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py            # the full check, ~1.5 minutes on an H100
+    python3 chip_smoke.py            # the full check, ~3 minutes on an H100
     python3 chip_smoke.py --phases kernels,data,profile   # a subset
 
 Phases (any failure makes the exit code non-zero):
@@ -61,8 +61,27 @@ Phases (any failure makes the exit code non-zero):
      phase's {300, 350 kHz} mapping, 3 iterations: s/iter, loss, RMSE,
      launches (two factorizations a frequency an iteration); 2 iterations
      held against the plain path;
- 11. profile (only when asked for): torch.profiler over 2 iterations of each
-     engine, device time by kernel name and the idle share.
+ 11. gmres: invert_dataset with SolverConfig(method=GMRES) (tol 1e-5, cap
+     1000), 2 CG iterations, every matvec K3: s/iter, matvecs and
+     residuals of each solve, RMSE, peak memory, launches (K3 only); K1
+     and K2 at the 151^2 coarse width against their plain versions; one
+     forward operator solve two-level (K1 on the 151^2 coarse operator, K2
+     in every preconditioner application) beside the one-level one at the
+     same matvec count; two cycles of each, kernel against
+     fused_apply="off" (equal matvecs, iterates rel < 1e-4);
+ 12. born: invert_dataset with SolverConfig(method=BORN), 2 CG iterations:
+     s/iter, matvecs a solve, ms of one FFT pair of the Green's operator,
+     RMSE, peak memory; no kernel launched;
+ 13. broadband: the JAX CLI's broadband workflow with the 256-element ring:
+     (tx, rx, t) traces over the 150-350 kHz comb at 401^2 (9 lines, one
+     K1 and one K2 each), extraction held to the comb's receiver matrices
+     (rel < 1e-4), the direct-arrival gate, then a 150/250/350 kHz
+     continuation of 5 CG iterations a frequency at 301^2: synthesis
+     seconds, s/iter a stage, losses falling in each stage, RMSE, launches
+     as counted;
+ 14. profile (only when asked for): torch.profiler over 2 iterations of each
+     engine, a two-cycle GMRES solve (one- and two-level) and a Born
+     solve: device time by kernel name and the idle share.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -106,8 +125,9 @@ KERNELS = {
 # sweeps and K3 the port's own bounds (f32 sums taken in another order than
 # the plain path); K5, and the factorizations' pivot inverse launched alone,
 # the bound of tests/test_batched_inv.py:82.
-TOL = {"factor": 5e-6, "sweep": 1e-5, "sweep_401": 1e-5, "stencil": 1e-6,
-       "stencil_801": 1e-6, "twisted_factor": 5e-6, "twisted_sweep": 1e-5,
+TOL = {"factor": 5e-6, "factor_151": 5e-6, "sweep": 1e-5, "sweep_401": 1e-5,
+       "sweep_151": 1e-5, "stencil": 1e-6, "stencil_801": 1e-6,
+       "twisted_factor": 5e-6, "twisted_sweep": 1e-5,
        "twisted_sweep_401": 1e-5, "batched_inv": 5e-5,
        "batched_inv_16": 5e-5, "pivot_inverse": 5e-5}
 # A trajectory against another (an engine against block-Thomas, a kernel
@@ -1111,12 +1131,16 @@ class Smoke:
 
     # -- phases 8-10 ----------------------------------------------------
     def run_method(self, name, method, dataset, n_iter, uses,
-                   timed=contextlib.nullcontext, **kw):
+                   timed=contextlib.nullcontext, warmup=True,
+                   rmse_must_fall=True, **kw):
         """invert_dataset(method=...) with no device named, at the main
-        path's grid from 1480 m/s: a 1-iteration warm-up, then the timed
-        run of ``n_iter`` (inside the context ``timed()``) between a reset
-        and a reading of the launch counts. ``uses``: the kernels it must
-        launch, every other at 0. Returns (result, seconds, counts)."""
+        path's grid from 1480 m/s: a 1-iteration warm-up (unless
+        ``warmup`` is false: the iterative solvers' runs are seconds long),
+        then the timed run of ``n_iter`` (inside the context ``timed()``)
+        between a reset and a reading of the launch counts. ``uses``: the
+        kernels it must launch, every other at 0; the RMSE must fall below
+        the start's when ``rmse_must_fall``. Returns (result, seconds,
+        counts)."""
         import torch
         from waveforminversionust_tpu_torch import FWIConfig, invert_dataset
         from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
@@ -1129,10 +1153,12 @@ class Smoke:
                                   fwi=FWIConfig(num_iterations=n),
                                   method=method, **kw)
 
-        t0 = time.perf_counter()
-        run(1)
-        torch.cuda.synchronize()
-        log(f" warm-up run (1 iteration): {time.perf_counter() - t0:.2f} s")
+        if warmup:
+            t0 = time.perf_counter()
+            run(1)
+            torch.cuda.synchronize()
+            log(f" warm-up run (1 iteration): "
+                f"{time.perf_counter() - t0:.2f} s")
         with timed():
             torch.cuda.reset_peak_memory_stats()
             reset_kernel_launch_counts()
@@ -1160,7 +1186,9 @@ class Smoke:
         for k in KERNELS:
             self.launches[k] += counts[k]
         self.check(np.all(np.isfinite(loss)), f"loss not finite: {loss}")
-        self.check(rmse < rmse0, f"rmse {rmse} not below the start {rmse0}")
+        if rmse_must_fall:
+            self.check(rmse < rmse0,
+                       f"rmse {rmse} not below the start {rmse0}")
         self.check(all(counts[k] > 0 for k in uses)
                    and all(n == 0 for k, n in counts.items() if k not in uses),
                    f"launches {counts}: the path's kernels {uses} only")
@@ -1356,47 +1384,349 @@ class Smoke:
         self.kernel_vs_plain("joint-multifreq, 2 iterations, kernel path vs "
                              "plain path", two, GOLDEN)
 
-    # -- phase 11 -------------------------------------------------------
+    # -- phases 11-13 ---------------------------------------------------
+    @contextlib.contextmanager
+    def recorded(self, module, name, out, read):
+        """Patch ``module.name`` so that every call appends ``read(result)``
+        to ``out`` (the solves' matvecs and residuals)."""
+        real = getattr(module, name)
+
+        def wrapper(*a, **k):
+            res = real(*a, **k)
+            out.append(read(res))
+            return res
+
+        with mock.patch.object(module, name, wrapper):
+            yield
+
+    def gmres(self):
+        """GMRES on the 9-point system, every matvec K3: 2 CG iterations
+        through invert_dataset with the defaults (tol 1e-5, cap 1000,
+        shift 0.5); one forward operator solve two-level (a 151^2 coarse
+        factor, K1, and a K2 coarse solve every preconditioner application)
+        beside the one-level one at the same matvec count; then two cycles
+        of each, kernel path against fused_apply="off"."""
+        import torch
+        from waveforminversionust_tpu_torch.config import (SolverConfig,
+                                                           SolverMethod)
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts,
+                                                        solve)
+
+        def read(res):
+            rel = res.rel_residual
+            return (res.iterations, float(rel.max()), float(rel.median()))
+
+        solves = []
+        gm = SolverConfig(method=SolverMethod.GMRES)
+        with self.recorded(solve, "gmres", solves, read):
+            self.run_method("gmres", "cg", self.ds, 2, ("stencil",),
+                            warmup=False, rmse_must_fall=False, solver=gm)
+        log(f" solves (matvecs, max and median relative residual): {solves}")
+        self.slices["gmres"]["solves"] = solves
+
+        grid, data, vel0 = self._setup()
+        two = SolverConfig(method=SolverMethod.GMRES, gmres_two_level=True)
+        reset_kernel_launch_counts()
+        solve._coarse_factor(vel0, data.f, grid, two)
+        per_factor = kernel_launch_counts()["factor"]
+        self.coarse_kernels(vel0, data, grid, two)
+        runs = {}
+        for label, cfg in (("two-level", two), ("one-level", None)):
+            if cfg is None:  # the one-level solve at the same matvec count
+                cfg = SolverConfig(method=SolverMethod.GMRES,
+                                   maxiter=runs["two-level"]["matvecs"])
+            out = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launch_counts()
+            t0 = time.perf_counter()
+            with self.recorded(solve, "gmres", out, read):
+                op = solve.make_helmholtz_operator(vel0, data.f, grid, cfg)
+                solve.helmholtz_operator_solve(op, data.src, grid, cfg)
+            torch.cuda.synchronize()
+            counts = kernel_launch_counts()
+            matvecs, rmax, rmed = out[0]
+            runs[label] = dict(seconds=time.perf_counter() - t0,
+                               matvecs=matvecs, rel_residual_max=rmax,
+                               rel_residual_median=rmed, launches=counts,
+                               peak_memory_mib=torch.cuda.max_memory_allocated()
+                               / 2**20)
+            log(f" {label} forward operator solve, {self.n_tx} RHS: "
+                f"{runs[label]}")
+            del op
+        counts = runs["two-level"]["launches"]
+        for k in KERNELS:
+            self.launches[k] += counts[k]
+        self.slices["gmres"]["operator_solves"] = runs
+        self.check(counts["factor"] == per_factor and counts["sweep"] > 0
+                   and counts["stencil"] > 0,
+                   f"two-level launches {counts}: factor must be one 151^2 "
+                   f"factorization's {per_factor}")
+
+        failed = []
+        for level in (False, True):
+            out, fields = [], []
+            for fused in ("auto", "off"):
+                cfg = SolverConfig(method=SolverMethod.GMRES, maxiter=34,
+                                   gmres_two_level=level, fused_apply=fused)
+                with self.recorded(solve, "gmres", out, read):
+                    op = solve.make_helmholtz_operator(vel0, data.f, grid, cfg)
+                    fields.append(solve.helmholtz_operator_solve(
+                        op, data.src, grid, cfg))
+            rel = rel_err(fields[0], fields[1])
+            log(f" two cycles, {'two' if level else 'one'}-level, kernel vs "
+                f"plain apply: matvecs {out[0][0]} / {out[1][0]}, iterates "
+                f"rel {rel:.3e} (held to 1e-4)")
+            if not (out[0][0] == out[1][0] and rel < 1e-4):
+                failed.append(f"two-level={level}: {out}, rel {rel}")
+            del fields, op
+        self.check(not failed, f"GMRES parity failed: {failed}")
+
+    def coarse_kernels(self, vel0, data, grid, cfg):
+        """K1 and K2 at the two-level preconditioner's 151^2 coarse width:
+        the coarse factor against the plain factor in complex128, and one
+        256-RHS coarse solve, forward and adjoint, of the restricted
+        sources against the plain sweeps (the kernels phase's bounds)."""
+        import torch
+        from waveforminversionust_tpu_torch.ops import banded, preconditioner, solve
+        from waveforminversionust_tpu_torch.ops.kernel_sweep import banded_solve_kernel
+
+        failed_before = len(self.bad)
+        fac, ms = timed(lambda: solve._coarse_factor(vel0, data.f, grid, cfg),
+                        REPS)
+        coeffs = fac.coeffs
+        fp, plain_ms = host_timed(lambda: banded.banded_factor(coeffs))
+        ny, nx = coeffs.shape[1:]
+        g64 = banded.banded_factor(coeffs.to(torch.complex128)).g
+        log(f" K1 on the {ny}^2 coarse operator; kernel vs complex128 plain:")
+        self.record("factor_151", fac.g.to(torch.complex128), g64, ms,
+                    plain_ms, bound(ny * CMAC * nx ** 3,
+                                    (9 * ny * nx + ny * nx * nx) * C64))
+        del g64, fp
+        b = preconditioner._restrict_axis(
+            preconditioner._restrict_axis(data.src, -2), -1).contiguous()
+        for adjoint in (False, True):
+            xk, ms = timed(lambda: banded_solve_kernel(fac, b, adjoint), REPS)
+            xp, plain_ms = timed(lambda: banded.banded_solve(fac, b, adjoint),
+                                 REPS)
+            log(f" K2 on the coarse factor, adjoint={adjoint}, "
+                f"{b.shape[0]} RHS:")
+            self.record("sweep_151", xk, xp, ms, plain_ms, bound(
+                (2 * ny - 1) * CMAC * nx * nx * b.shape[0],
+                (ny * nx * nx + 9 * ny * nx + 2 * b.numel()) * C64))
+        self.check(len(self.bad) == failed_before,
+                   f"coarse kernel checks failed: {self.bad[failed_before:]}")
+
+    def born(self):
+        """The convergent Born series (GMRES on its system, the default):
+        2 CG iterations through invert_dataset; FFTs only, no kernel."""
+        import torch
+        from waveforminversionust_tpu_torch.config import (SolverConfig,
+                                                           SolverMethod)
+        from waveforminversionust_tpu_torch.ops import born, solve
+
+        matvecs = []
+        cfg = SolverConfig(method=SolverMethod.BORN)
+        with self.recorded(solve, "born_gmres_solve", matvecs,
+                           lambda res: res[1]):
+            self.run_method("born", "cg", self.ds, 2, (), warmup=False,
+                            rmse_must_fall=False, solver=cfg)
+        grid, data, vel0 = self._setup()
+        greens, *_ = born.born_operator(vel0, data.f, grid, cfg.born_pml)
+        rng = np.random.default_rng(7)
+        shape = (self.n_tx,) + grid.shape
+        w = torch.as_tensor((rng.standard_normal(shape)
+                             + 1j * rng.standard_normal(shape)
+                             ).astype(np.complex64), device=self.device)
+        _, fft_ms = timed(lambda: greens(w), REPS)
+        log(f" matvecs a solve {matvecs}; one FFT pair of the Green's "
+            f"operator over {self.n_tx} x {grid.ny}^2: {fft_ms:.3f} ms")
+        self.slices["born"].update(matvecs=matvecs, fft_pair_ms=fft_ms)
+
+    def broadband(self):
+        """The JAX CLI's broadband workflow (cli.py:264-330) through the
+        port's functions, with the main path's 256-element ring: traces over
+        the 150-350 kHz comb in 25 kHz steps at 401^2 / 0.6 mm (one K1 and
+        one K2 a line), the direct-arrival gate, extraction at 150, 250
+        and 350 kHz without deconvolution, then a continuation of 5 CG
+        iterations a frequency at 301^2 from 1480 m/s."""
+        import torch
+        from waveforminversionust_tpu_torch import (ContinuationConfig,
+                                                    FWIConfig, invert_dataset)
+        from waveforminversionust_tpu_torch.data import timedomain
+        from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
+        from waveforminversionust_tpu_torch.models.acquisition import (
+            ring_positions, snap_to_grid)
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
+        from waveforminversionust_tpu_torch.models.phantom import breast_phantom
+        from waveforminversionust_tpu_torch.ops import (kernel_factor,
+                                                        kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+        from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
+
+        coarse, fine = self.grid, data_grid()
+        acq = self.acq_config
+        xi, yi = snap_to_grid(coarse, *ring_positions(acq.num_elements,
+                                                      acq.radius))
+        vel = breast_phantom(fine)
+        per = {}
+        for g in (fine, coarse):
+            reset_kernel_launch_counts()
+            kernel_factor.banded_factor_kernel(helmholtz_coefficients(
+                torch.full(g.shape, 1500.0, device=self.device), g, 250e3))
+            per[g.ny] = kernel_launch_counts()["factor"]
+
+        comb = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        with self.recorded(timedomain, "_sweep_record", comb, lambda r: r):
+            td = timedomain.synthesize_time_domain_dataset(
+                vel, fine, acq, f_low=150e3, f_high=350e3, df=25e3, seed=0,
+                x_elem=coarse.x[xi], y_elem=coarse.y[yi])
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+        syn_counts = kernel_launch_counts()
+        synth_peak = torch.cuda.max_memory_allocated() / 2**20
+        nf = len(td.freqs)
+        lines = timedomain.extract_frequency_data(td.traces, td.times,
+                                                  td.freqs, td.df,
+                                                  td.spectrum)
+        rec = comb[0].cpu().numpy()
+        line_rel = [float(np.linalg.norm(lines[i] - rec[i])
+                          / np.linalg.norm(rec[i])) for i in range(nf)]
+        log(f" traces {td.traces.shape} over {nf} comb lines in {synth_s:.2f} "
+            f"s, peak {synth_peak:.1f} MiB; launches {syn_counts}; "
+            f"extraction vs the comb's receiver matrices, rel by line "
+            f"{[float(f'{e:.2e}') for e in line_rel]} (held to 1e-4)")
+        gated = timedomain.direct_arrival_gate(td, c_ref=1480.0, pre=3e-6,
+                                               post=8e-6, taper=2e-6)
+        kept = float(np.sum(np.abs(gated.traces) ** 2)
+                     / np.sum(np.abs(td.traces) ** 2))
+        log(f" direct-arrival gate (1480 m/s, 3/8/2 us): {kept:.3f} of the "
+            f"trace energy kept")
+        self.check(max(line_rel) < 1e-4, f"extraction off: {line_rel}")
+        self.check(syn_counts == dict(dict.fromkeys(KERNELS, 0),
+                                      factor=nf * per[fine.ny], sweep=nf,
+                                      stencil=nf),
+                   f"synthesis launches {syn_counts}")
+        self.check(np.all(np.isfinite(gated.traces)) and 0 < kept < 1,
+                   f"gate kept {kept}")
+
+        freqs = (150e3, 250e3, 350e3)
+        n_stage = 5
+        datasets = timedomain.timedomain_to_ring_datasets(td, freqs,
+                                                          deconvolve=False)
+        ends = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        res = invert_dataset(
+            datasets, grid=coarse, acquisition=acq,
+            fwi=FWIConfig(c_init=1480.0),
+            continuation=ContinuationConfig(frequencies=freqs,
+                                            iterations_per_frequency=n_stage),
+            callback=lambda *a: ends.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        counts = kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        stage_s = np.diff([t0] + ends)
+        loss = res.metrics["loss"]
+        true_grid = Grid2D.from_arrays(td.x, td.y)
+        rmse0 = reconstruction_rmse(np.full(coarse.shape, 1480.0), coarse,
+                                    td.c, true_grid)
+        rmse = reconstruction_rmse(res.velocity, coarse, td.c, true_grid)
+        log(f" continuation {freqs}, {n_stage} iterations each: s/iter by "
+            f"stage {(stage_s / n_stage).tolist()}; loss {loss.tolist()}; "
+            f"rmse start {rmse0:.4f} end {rmse:.4f} m/s; peak {peak:.1f} "
+            f"MiB; launches {counts}")
+        self.slices["broadband"] = dict(
+            synthesis_s=synth_s, comb_lines=nf, synthesis_launches=syn_counts,
+            synthesis_peak_memory_mib=synth_peak, extraction_rel=line_rel,
+            gate_energy_kept=kept,
+            s_per_iter_by_stage=(stage_s / n_stage).tolist(),
+            loss=loss.tolist(), rmse_start=rmse0, rmse_end=rmse,
+            launches=counts, peak_memory_mib=peak)
+        for k in KERNELS:
+            self.launches[k] += counts[k] + syn_counts[k]
+        n_iter = n_stage * len(freqs)
+        self.check(np.all(np.isfinite(loss)) and all(
+            loss[i + n_stage - 1] < loss[i] for i in range(0, n_iter, n_stage)),
+            f"stage losses not finite and falling: {loss}")
+        self.check(rmse < rmse0, f"rmse {rmse} not below the start {rmse0}")
+        self.check(counts == dict(dict.fromkeys(KERNELS, 0),
+                                  factor=n_iter * per[coarse.ny],
+                                  sweep=3 * n_iter),
+                   f"inversion launches {counts}")
+
+    # -- phase 14 -------------------------------------------------------
     def profile(self):
         """torch.profiler over 2 iterations (one factored, one stale) of
-        each engine: device time by kernel name, and the idle share."""
+        each engine, and over one two-cycle GMRES forward solve (one- and
+        two-level) and one Born solve: device time by kernel name, and the
+        idle share."""
         import torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        from waveforminversionust_tpu_torch.config import FWIConfig, SolverConfig
+        from waveforminversionust_tpu_torch.config import (FWIConfig,
+                                                           SolverConfig,
+                                                           SolverMethod)
         from waveforminversionust_tpu_torch.fwi.optimizers import nonlinear_cg
+        from waveforminversionust_tpu_torch.ops import solve
 
         grid, data, vel0 = self._setup()
         fwi = FWIConfig(num_iterations=2)
         for engine in ("auto", "twisted", "cr"):
             solver = SolverConfig(refactor_every=2, factorization=engine)
-            nonlinear_cg(vel0, data, grid, solver, fwi)
-            torch.cuda.synchronize()
+            self.profiled(f"{engine}: 2 iterations",
+                          lambda: nonlinear_cg(vel0, data, grid, solver, fwi))
+        for label, cfg in (
+                ("GMRES one-level, 34 matvecs",
+                 SolverConfig(method=SolverMethod.GMRES, maxiter=34)),
+                ("GMRES two-level, 34 matvecs",
+                 SolverConfig(method=SolverMethod.GMRES, maxiter=34,
+                              gmres_two_level=True)),
+                ("Born, one solve", SolverConfig(method=SolverMethod.BORN))):
+            op = solve.make_helmholtz_operator(vel0, data.f, grid, cfg)
+            self.profiled(label, lambda: solve.helmholtz_operator_solve(
+                op, data.src, grid, cfg))
+
+    def profiled(self, label, fn):
+        """Run ``fn`` once unprofiled, then under torch.profiler; log the
+        wall times, the device's busy time and idle share, and the 14
+        kernels that took the most device time."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            nonlinear_cg(vel0, data, grid, solver, fwi)
+            fn()
             torch.cuda.synchronize()
-            plain_wall = time.perf_counter() - t0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                nonlinear_cg(vel0, data, grid, solver, fwi)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            # device-side events only: an aten op's row repeats the time of
-            # the kernels it launched
-            rows = [(e.key, e.count,
-                     getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-            rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
-            busy = sum(r[2] for r in rows) / 1e6
-            log(f" profile {engine}: 2 iterations, {wall:.4f} s profiled wall "
-                f"({plain_wall:.4f} s unprofiled), device busy {busy:.4f} s, "
-                f"idle share {max(0.0, 1 - busy / wall):.3f}")
-            for key, count, us in rows[:14]:
-                log(f"   {us / 1e3:10.3f} ms {us / 1e6 / busy:6.1%} "
-                    f"x{count:<6d} {key[:90]}")
+            wall = time.perf_counter() - t0
+        # device-side events only: an aten op's row repeats the time of
+        # the kernels it launched
+        rows = [(e.key, e.count,
+                 getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+        busy = sum(r[2] for r in rows) / 1e6
+        log(f" profile {label}: {wall:.4f} s profiled wall "
+            f"({plain_wall:.4f} s unprofiled), device busy {busy:.4f} s, "
+            f"idle share {max(0.0, 1 - busy / wall):.3f}")
+        for key, count, us in rows[:14]:
+            log(f"   {us / 1e3:10.3f} ms {us / 1e6 / busy:6.1%} "
+                f"x{count:<6d} {key[:90]}")
 
 
 def nvidia_smi(query="name,power.limit") -> str:
@@ -1409,17 +1739,18 @@ def nvidia_smi(query="name,power.limit") -> str:
 
 SLICES = ("slice", "slice_twisted", "slice_cr")
 PATHS = SLICES + ("parity", "intake", "runner", "lbfgs", "gn", "multifreq",
-                  "profile")
+                  "gmres", "born", "broadband", "profile")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,data,slice,slice_twisted,slice_cr,"
-                            "parity,intake,runner,lbfgs,gn,multifreq",
+                            "parity,intake,runner,lbfgs,gn,multifreq,gmres,"
+                            "born,broadband",
                     help="comma-separated subset of kernels,data,slice,"
                          "slice_twisted,slice_cr,parity,intake,runner,lbfgs,"
-                         "gn,multifreq,profile")
+                         "gn,multifreq,gmres,born,broadband,profile")
     args = ap.parse_args(argv)
 
     import torch

@@ -1,17 +1,25 @@
 """Generate the JAX package's reference outputs that the PyTorch port's
-tests hold their L-BFGS, Gauss-Newton, resolution and joint multi-frequency
-paths against (tests/golden/torch_methods.npz):
+tests hold their methods and solvers against:
 
-    python tests/golden/generate_torch.py
+    python tests/golden/generate_torch.py            # torch_methods.npz
+    python tests/golden/generate_torch.py solvers    # torch_solvers.npz
 
 Each of those JAX functions compiles for 5-20 s on one CPU core, which the
-tests cannot afford one by one (tests/test_torch_autodiff.py and
-tests/test_torch_newton.py keep one live JAX comparison a module). The
-problems are small and seeded: the 21x21 loss of tests/test_adjoint_vjp.py
-for the differentiable solve, and a 41x41 ring of 8 elements over a blob
-(data synthesized here by the JAX package at 250 and 300 kHz) for the
-inversions, 2-3 iterations each. The tests import the constants and the
-problem builders from this file.
+tests cannot afford one by one (each test module keeps one live JAX
+comparison). The problems are small and seeded, and the tests import the
+constants and the problem builders from this file.
+
+torch_methods.npz (tests/test_torch_autodiff.py, test_torch_newton.py):
+the 21x21 loss of tests/test_adjoint_vjp.py for the differentiable solve,
+and a 41x41 ring of 8 elements over a blob (data synthesized here by the
+JAX package at 250 and 300 kHz) for the inversions, 2-3 iterations each.
+
+torch_solvers.npz (tests/test_torch_krylov.py, test_torch_born.py,
+test_torch_timedomain.py): GMRES through the JAX package's split path (the
+one the port follows), one- and two-level, on the 21x21 planes, and its
+gradient; the Born solves and their gradients on tests/test_solvers.py's
+61x61 blob; 2 CG iterations with GMRES and with Born on a 21x21 ring of 8
+elements; and tests/test_timedomain.py's broadband chain.
 """
 
 import os
@@ -26,8 +34,9 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-from waveforminversionust_tpu import (AcquisitionConfig, FWIConfig,  # noqa: E402
-                                      Grid2D, PMLConfig, SolverConfig,
+from waveforminversionust_tpu import (AcquisitionConfig,  # noqa: E402
+                                      ContinuationConfig, FWIConfig, Grid2D,
+                                      PMLConfig, SolverConfig,
                                       solve_helmholtz)
 from waveforminversionust_tpu.data.synthesize import \
     synthesize_ring_dataset  # noqa: E402
@@ -44,6 +53,7 @@ from waveforminversionust_tpu.ops.solve import (  # noqa: E402
     helmholtz_operator_solve, make_helmholtz_operator)
 
 OUT = os.path.join(os.path.dirname(__file__), "torch_methods.npz")
+OUT_SOLVERS = os.path.join(os.path.dirname(__file__), "torch_solvers.npz")
 
 # -- the differentiable solve (tests/test_adjoint_vjp.py::_small_problem) ----
 SOLVE_F = 350e3
@@ -216,5 +226,146 @@ def main():
     print(f"wrote {OUT}: {len(out)} arrays")
 
 
+# -- the iterative solvers (torch_solvers.npz) -------------------------------
+GMRES_TOL, GMRES_MAXITER = 1e-5, 4000      # tests/test_solvers.py:264
+GRAD_TOL, GRAD_MAXITER = 1e-7, 6000        # tests/test_solvers.py:327
+BORN_EXTENT = 24e-3                         # tests/test_solvers.py::_problem
+ALPHA_BORN = 3.0
+# The 21x21 ring of the CG comparisons: small enough that every GMRES solve
+# converges within its cap at the tolerance below, where the CG trajectory
+# no longer moves with the last digits of the solves.
+KRING_EXTENT, KRING_PML, KRING_F = 8e-3, 2e-3, 300e3
+KRING_ACQ = dict(num_elements=8, radius=5e-3, num_excluded_each_side=1)
+KRING_TOL, KRING_MAXITER = 1e-6, 4000
+# tests/test_timedomain.py::TestTimeDomainAcquisition
+TD_ACQ = dict(num_elements=32, radius=18e-3, num_excluded_each_side=5)
+TD_PML = dict(l_pml=4e-3)
+TD_BAND = dict(f_low=0.12e6, f_high=0.2e6, df=0.04e6)
+TD_FREQS = (0.12e6, 0.2e6)
+TD_SEED = 3
+
+
+def born_problem():
+    """(vel, src) of tests/test_solvers.py::_problem: 61x61, 2 sources."""
+    grid = Grid2D.centered(BORN_EXTENT, 0.8e-3)
+    vel = np.asarray(smooth_blob_phantom(grid, radius=8e-3, dc=60),
+                     np.float32)
+    ny, nx = grid.shape
+    src = np.zeros((2, ny, nx), np.complex64)
+    src[0, ny // 2, nx // 2] = 1.0
+    src[1, ny // 3, 2 * nx // 3] = 1.0 + 0.5j
+    return vel, src
+
+
+def kring_velocity(grid):
+    return smooth_blob_phantom(grid, radius=3.2e-3, dc=40, c_bkgnd=1500.0)
+
+
+def td_grids():
+    """(coarse 61x61, fine 121x121, snapped element x, y)."""
+    from waveforminversionust_tpu.models.acquisition import (ring_positions,
+                                                             snap_to_grid)
+    coarse = Grid2D.centered(24e-3, 0.8e-3)
+    xi, yi = snap_to_grid(coarse, *ring_positions(TD_ACQ["num_elements"],
+                                                  TD_ACQ["radius"]))
+    fine = Grid2D.centered(24e-3, 0.4e-3)
+    return coarse, fine, coarse.x[xi], coarse.y[yi]
+
+
+def main_solvers():
+    import dataclasses
+
+    from waveforminversionust_tpu import SolverMethod
+    from waveforminversionust_tpu.data import timedomain
+    from waveforminversionust_tpu.ops import born, cpx
+
+    out = {}
+    vel, src, weight = solve_problem()
+    grid = Grid2D.centered(SOLVE_EXTENT, SOLVE_H)
+    for two in (False, True):
+        cfg = SolverConfig(method=SolverMethod.GMRES, tol=GMRES_TOL,
+                           maxiter=GMRES_MAXITER, split_complex=True,
+                           gmres_two_level=two, pml=PMLConfig(**SOLVE_PML))
+        op = make_helmholtz_operator(vel, SOLVE_F, grid, cfg)
+        for adjoint in (False, True):
+            out[f"gmres_op_{int(two)}_{int(adjoint)}"] = cpx.to_numpy(
+                helmholtz_operator_solve(op, src, grid, cfg, adjoint=adjoint))
+    cfg = SolverConfig(method=SolverMethod.GMRES, tol=GRAD_TOL,
+                       maxiter=GRAD_MAXITER, split_complex=True,
+                       pml=PMLConfig(**SOLVE_PML))
+
+    def gloss(v):
+        u, _ = solve_helmholtz(v, src, SOLVE_F, grid, cfg)
+        return jnp.sum(cpx.abs2(u) * weight)
+
+    out["gmres_gv"] = jax.grad(gloss)(vel)
+
+    bvel, bsrc = born_problem()
+    bgrid = Grid2D.centered(BORN_EXTENT, 0.8e-3)
+    bcfg = SolverConfig(method=SolverMethod.BORN)
+    alpha = np.full(bvel.shape, ALPHA_BORN, np.float32)
+    bweight = 1.0 + 0.3 * np.cos(np.arange(bsrc.size, dtype=np.float32)
+                                 ).reshape(bsrc.shape)
+    for adjoint in (False, True):
+        k = int(adjoint)
+        for lossy, att in ((0, None), (1, alpha)):
+            u, n = born.born_gmres_solve(bvel, bsrc, SOLVE_F, bgrid,
+                                         bcfg.born_pml, adjoint=adjoint,
+                                         attenuation=att)
+            out[f"born_gmres_{k}_{lossy}"] = u
+            out[f"born_gmres_n_{k}_{lossy}"] = n
+        u, n = born.born_series_solve(bvel, bsrc, SOLVE_F, bgrid,
+                                      bcfg.born_pml, adjoint=adjoint)
+        out[f"born_series_{k}"], out[f"born_series_n_{k}"] = u, n
+
+        def bloss(v, s, a=None):
+            u, _ = solve_helmholtz(v, s, SOLVE_F, bgrid, bcfg,
+                                   adjoint=adjoint, attenuation=a)
+            return jnp.sum(jnp.abs(u) ** 2 * bweight)
+
+        gv, gs = jax.grad(bloss, argnums=(0, 1))(bvel, bsrc)
+        lv, la = jax.grad(bloss, argnums=(0, 2))(bvel, bsrc, alpha)
+        out.update({f"born_gv_{k}": gv, f"born_gs_{k}": gs,
+                    f"born_lossy_gv_{k}": lv, f"born_lossy_ga_{k}": la})
+
+    kgrid = Grid2D.centered(KRING_EXTENT, H)
+    ksolver = SolverConfig(pml=PMLConfig(l_pml=KRING_PML))
+    ds = synthesize_ring_dataset(kring_velocity(kgrid), kgrid,
+                                 AcquisitionConfig(**KRING_ACQ), f=KRING_F,
+                                 seed=3, solver=ksolver)
+    out.update(kring_rec=ds.rec_data, kring_x_circ=ds.x_circ,
+               kring_y_circ=ds.y_circ, kring_c=ds.c)
+    for name, method, extra in (
+            ("cg_gmres", SolverMethod.GMRES,
+             dict(tol=KRING_TOL, maxiter=KRING_MAXITER)),
+            ("cg_born", SolverMethod.BORN, {})):
+        res = runner.invert_dataset(
+            ds, grid=kgrid, acquisition=AcquisitionConfig(**KRING_ACQ),
+            solver=dataclasses.replace(ksolver, method=method, **extra),
+            fwi=FWIConfig(num_iterations=2))
+        out.update({f"{name}_loss": res.metrics["loss"],
+                    f"{name}_step": res.metrics["step_size"],
+                    f"{name}_velocity": res.velocity})
+
+    coarse, fine, xs, ys = td_grids()
+    tsolver = SolverConfig(pml=PMLConfig(**TD_PML))
+    td = timedomain.synthesize_time_domain_dataset(
+        smooth_blob_phantom(fine, radius=8e-3, dc=30), fine,
+        AcquisitionConfig(**TD_ACQ), solver=tsolver, seed=TD_SEED,
+        x_elem=xs, y_elem=ys, **TD_BAND)
+    res = runner.invert_dataset(
+        timedomain.timedomain_to_ring_datasets(td, TD_FREQS,
+                                               deconvolve=False),
+        grid=coarse, acquisition=AcquisitionConfig(**TD_ACQ),
+        solver=tsolver, fwi=FWIConfig(c_init=1500.0),
+        continuation=ContinuationConfig(frequencies=TD_FREQS,
+                                        iterations_per_frequency=2))
+    out.update(td_traces=td.traces, td_loss=res.metrics["loss"],
+               td_step=res.metrics["step_size"], td_velocity=res.velocity)
+    np.savez_compressed(OUT_SOLVERS,
+                        **{k: np.asarray(v) for k, v in out.items()})
+    print(f"wrote {OUT_SOLVERS}: {len(out)} arrays")
+
+
 if __name__ == "__main__":
-    main()
+    main_solvers() if sys.argv[1:] == ["solvers"] else main()

@@ -110,9 +110,7 @@ def test_solver_config_dispatch(monkeypatch, factorization, fused_apply):
                      else [])
 
 
-@pytest.mark.parametrize("cfg", [SolverConfig(method=SolverMethod.GMRES),
-                                 SolverConfig(method=SolverMethod.BORN),
-                                 SolverConfig(factorization="spike",
+@pytest.mark.parametrize("cfg", [SolverConfig(factorization="spike",
                                               refactor_every=2),
                                  SolverConfig(factorization="spike")]
                          + [SolverConfig(factorization=mode, **hybrid)
@@ -124,6 +122,41 @@ def test_later_slices_raise(cfg):
     with pytest.raises(NotImplementedError, match="later slice"):
         tsolve.make_helmholtz_operator(torch.full(grid.shape, 1500.0), F,
                                        grid, cfg)
+
+
+@pytest.mark.parametrize("method", [SolverMethod.GMRES, SolverMethod.BORN])
+def test_gmres_and_born_operators_run(monkeypatch, method):
+    """The operator API runs GMRES and Born: a GMRES operator carries the
+    preconditioner's parameters and every matvec goes through the stencil
+    kernel's wrapper (its plain version on CPU tensors, no launch), its
+    solve within the JAX package's 5e-3 of the banded one
+    (tests/test_solvers.py:272); Born's solve is finite and touches no
+    kernel wrapper."""
+    calls = []
+
+    def spy(planes, v):
+        calls.append(1)
+        return kernel_stencil.h_apply_kernel(planes, v)
+
+    monkeypatch.setattr(tsolve, "h_apply_kernel", spy)
+    grid = Grid2D.centered(8e-3, 0.8e-3)
+    vel = torch.as_tensor(smooth_blob_phantom(grid, radius=3e-3, dc=60))
+    cfg = SolverConfig(method=method, pml=PMLConfig(l_pml=2e-3))
+    src = _fields(14, (2,) + grid.shape)
+    reset_kernel_launch_counts()
+    op = tsolve.make_helmholtz_operator(vel, F, grid, cfg)
+    u = tsolve.helmholtz_operator_solve(op, src, grid, cfg)
+    assert op.factor is None and bool(torch.all(torch.isfinite(u)))
+    assert kernel_launch_counts() == NO_LAUNCHES
+    if method == SolverMethod.GMRES:
+        assert op.precond is not None and len(calls) > 16
+        banded_cfg = SolverConfig(pml=cfg.pml)
+        ub = tsolve.helmholtz_operator_solve(
+            tsolve.make_helmholtz_operator(vel, F, grid, banded_cfg), src,
+            grid, banded_cfg)
+        assert _rel(u, ub) < 5e-3
+    else:
+        assert op.precond is None and not calls
 
 
 @pytest.mark.parametrize("factorization", ["pallas", "twisted", "cr"])
@@ -567,3 +600,98 @@ def test_lbfgs_evaluation_launch_counts(cuda):
     assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=3 * ny, sweep=2,
                                           stencil=1)
     assert bool(torch.isfinite(value)) and bool(torch.all(torch.isfinite(grad)))
+
+
+# -- the iterative solvers and the comb sweep on a card -----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("two_level", [False, True])
+def test_gmres_through_kernels_matches_plain(cuda, monkeypatch, two_level,
+                                             adjoint):
+    """A GMRES operator solve capped at two cycles (maxiter 34), every
+    matvec through the stencil kernel, == the same solve with
+    ``fused_apply="off"`` on the same CUDA tensors: the same matvec count,
+    iterates within rel 5e-3, the JAX package's bound between its two GMRES
+    paths (tests/test_solvers.py:244). Two cycles of this indefinite
+    system amplify a change of summation order alone: on the CPU, the
+    plain apply with its nine terms summed in reverse moves these iterates
+    by 8.4e-5 to 1.1e-3. Two-level: the coarse 16x16 factor is K1 (3
+    launches a row, in both runs) and each preconditioner application a K2
+    solve."""
+    grid = Grid2D.centered(12e-3, 0.8e-3)
+    vel = torch.as_tensor(smooth_blob_phantom(grid, radius=4e-3, dc=60),
+                          device=cuda)
+    src = _fields(15, (3,) + grid.shape, cuda)
+    counts = []
+    real = tsolve.gmres
+
+    def spy(*a, **k):
+        res = real(*a, **k)
+        counts.append(res.iterations)
+        return res
+
+    monkeypatch.setattr(tsolve, "gmres", spy)
+    out = []
+    for fused in ("auto", "off"):
+        cfg = SolverConfig(method=SolverMethod.GMRES, maxiter=34,
+                           gmres_two_level=two_level, fused_apply=fused,
+                           pml=PMLConfig(l_pml=2.4e-3))
+        reset_kernel_launch_counts()
+        op = tsolve.make_helmholtz_operator(vel, F, grid, cfg)
+        out.append(tsolve.helmholtz_operator_solve(op, src, grid, cfg,
+                                                   adjoint=adjoint))
+        torch.cuda.synchronize()
+        launched = kernel_launch_counts()
+        # A cycle: 16 Arnoldi matvecs and the true residual, and 17
+        # preconditioner applications, each with a residual matvec and a
+        # coarse solve when two-level.
+        assert launched["stencil"] == ((34 + 34 * two_level)
+                                       if fused == "auto" else 0)
+        assert launched["factor"] == 3 * 16 * two_level
+        assert launched["sweep"] == 34 * two_level
+    assert counts == [34, 34]
+    assert _rel(out[0], out[1]) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("krylov", [True, False])
+def test_born_on_card_matches_cpu(cuda, krylov):
+    """A Born solve on the card (cuFFT) == the same solve on the CPU: rel <
+    1e-4; no kernel wrapper launches."""
+    grid = Grid2D.centered(12e-3, 0.8e-3)
+    vel = smooth_blob_phantom(grid, radius=4e-3, dc=60)
+    src = _fields(16, (3,) + grid.shape)
+    cfg = SolverConfig(method=SolverMethod.BORN, born_krylov=krylov)
+    reset_kernel_launch_counts()
+    u, _ = tsolve.solve_helmholtz(torch.as_tensor(vel, device=cuda),
+                                  src.to(cuda), F, grid, cfg)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == NO_LAUNCHES
+    want, _ = tsolve.solve_helmholtz(torch.as_tensor(vel), src, F, grid, cfg)
+    assert _rel(u.cpu(), want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_frequency_sweep_on_card(cuda):
+    """frequency_sweep on the card == one solve_helmholtz a frequency on
+    the card (atol 2e-5 of the largest, tests/test_timedomain.py:23-35):
+    one factorization (3 launches a row on 31x31) and one sweep a line."""
+    from waveforminversionust_tpu_torch.data.timedomain import frequency_sweep
+
+    grid = Grid2D.centered(12e-3, 0.8e-3)
+    solver = SolverConfig(pml=PMLConfig(l_pml=2.4e-3))
+    vel = torch.as_tensor(smooth_blob_phantom(grid, radius=4e-3, dc=30),
+                          device=cuda)
+    src = torch.zeros(grid.shape, dtype=torch.complex64, device=cuda)
+    src[15, 15] = 1.0
+    freqs = np.array([200e3, 300e3, 400e3])
+    reset_kernel_launch_counts()
+    fields = frequency_sweep(vel, src, freqs, grid, solver)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts() == dict(NO_LAUNCHES, factor=3 * 31 * 3,
+                                          sweep=3, stencil=3)
+    for i, f in enumerate(freqs):
+        u, _ = tsolve.solve_helmholtz(vel, src[None], f, grid, solver)
+        torch.testing.assert_close(fields[i], u[0], rtol=0,
+                                   atol=2e-5 * float(u.abs().max()))

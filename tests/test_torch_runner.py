@@ -380,22 +380,20 @@ def test_inversion_state_converts_a_jax_state():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(method="lbfgs", solver=SolverConfig(method=SolverMethod.GMRES)),
-     NotImplementedError, "A3"),
-    (dict(method="gn", solver=SolverConfig(method=SolverMethod.BORN)),
-     NotImplementedError, "A3"),
-    (dict(method="joint-multifreq",
-          solver=SolverConfig(method=SolverMethod.GMRES)),
-     NotImplementedError, "A3"),
     (dict(mesh=object()), NotImplementedError, "slice 7"),
     (dict(method="newton"), ValueError, "unknown method"),
     (dict(method="gn", mesh=object()), NotImplementedError, "slice 7"),
+    (dict(solver=SolverConfig(method=SolverMethod.GMRES, refactor_every=2)),
+     ValueError, "frozen-factor"),
+    (dict(solver=SolverConfig(method=SolverMethod.BORN, refactor_every=2)),
+     ValueError, "frozen-factor"),
 ])
 def test_later_slices_raise(recordings, kw, exc, match):
-    """The solvers and the mesh of later slices raise and name them under
-    every method (the GMRES and Born solvers ROADMAP.md A3, the mesh slice
-    7); an unknown method is a ValueError, as in the reference. The joint
-    method runs on the {frequency: dataset} mapping."""
+    """The mesh of a later slice raises and names it under every method
+    (slice 7); an unknown method is a ValueError, as in the reference; so
+    is the frozen-factor CG (``refactor_every > 1``) with GMRES or Born,
+    the reference's guard (fwi/optimizers.py:190-196). The joint method
+    runs on the {frequency: dataset} mapping."""
     coarse, recs = recordings
     data = recs if kw.get("method") == "joint-multifreq" else recs[FREQS[0]]
     with pytest.raises(exc, match=match):
@@ -404,15 +402,63 @@ def test_later_slices_raise(recordings, kw, exc, match):
                               device="cpu", **kw)
 
 
+@pytest.fixture(scope="module")
+def small_recordings():
+    """(grid, {250 kHz, 300 kHz: dataset}): a 17x17 ring of 6 elements,
+    synthesized by the port on its own grid, where GMRES converges within
+    its default cap."""
+    grid = Grid2D.centered(6.4e-3, 0.8e-3)
+    vel = smooth_blob_phantom(grid, radius=2.5e-3, dc=40, c_bkgnd=1500.0)
+    acq = AcquisitionConfig(num_elements=6, radius=4e-3,
+                            num_excluded_each_side=1)
+    return grid, acq, {f: synthesize_ring_dataset(
+        vel, grid, acq, f=f, seed=3,
+        solver=SolverConfig(pml=PMLConfig(l_pml=1.6e-3)), device="cpu")
+        for f in (250e3, 300e3)}
+
+
+@pytest.mark.parametrize("method,solver_method", [
+    ("lbfgs", SolverMethod.GMRES), ("gn", SolverMethod.BORN),
+    ("joint-multifreq", SolverMethod.GMRES)])
+def test_iterative_solvers_run_every_method(small_recordings, method,
+                                            solver_method):
+    """invert_dataset runs GMRES and Born under the methods the JAX
+    package runs them with: 2 iterations, finite and decreasing losses.
+    One intra-op thread: GMRES's host loop is thousands of tiny
+    operations, which extra threads only slow when several test workers
+    share the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _run_every_method(small_recordings, method, solver_method)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run_every_method(small_recordings, method, solver_method):
+    grid, acq, recs = small_recordings
+    data = recs if method == "joint-multifreq" else recs[300e3]
+    res = runner.invert_dataset(
+        data, grid=grid, acquisition=acq,
+        solver=SolverConfig(method=solver_method,
+                            pml=PMLConfig(l_pml=1.6e-3)),
+        fwi=FWIConfig(num_iterations=2), method=method, device="cpu")
+    loss = np.asarray(res.metrics["loss"])
+    assert loss.shape == (2,) and np.all(np.isfinite(loss))
+    assert loss[1] < loss[0]
+    assert np.all(np.isfinite(res.velocity))
+
+
 # -- C6: signatures shared with the reference -------------------------------
 
 MODULES = ["models.acquisition", "models.phantom",
-           "data.synthesize", "data.qc", "data.matio", "ops.stencil",
-           "ops.apply", "ops.banded", "ops.twisted", "ops.cyclic",
-           "ops.batched_inv", "ops.solve", "fwi.objective", "fwi.optimizers",
-           "fwi.regularization", "fwi.calibrate", "fwi.runner",
-           "fwi.lbfgs", "fwi.newton", "fwi.resolution", "fwi.multifreq",
-           "utils.checkpoint"]
+           "data.synthesize", "data.qc", "data.matio", "data.timedomain",
+           "ops.stencil", "ops.apply", "ops.banded", "ops.twisted",
+           "ops.cyclic", "ops.batched_inv", "ops.krylov",
+           "ops.preconditioner", "ops.born", "ops.solve", "fwi.objective",
+           "fwi.optimizers", "fwi.regularization", "fwi.calibrate",
+           "fwi.runner", "fwi.lbfgs", "fwi.newton", "fwi.resolution",
+           "fwi.multifreq", "utils.checkpoint"]
 # Parameters the port adds, beside the entry points' ``device=``, and why.
 ALLOWED = {
     ("ops.batched_inv", "batched_inv"): {

@@ -3,9 +3,12 @@ full-waveform inversion for ring-array ultrasound tomography on an NVIDIA
 H100, with hand-written CUDA kernels for the block-Thomas and twisted
 factorizations, their solve sweeps, the batched pivot inverse of cyclic
 reduction and the 9-point operator apply (``csrc/``). The Helmholtz solve
-is differentiable by ``torch.autograd``, its backward one adjoint solve
-through the forward's factor. The entry points run on the card unless the
-caller passes ``device="cpu"``.
+runs by a direct factor, by preconditioned GMRES (every matvec the stencil
+kernel) or by the convergent Born series, and is differentiable by
+``torch.autograd`` under each. The broadband (time-domain) acquisition
+chain synthesizes and extracts comb data for multi-frequency inversion.
+The entry points run on the card unless the caller passes
+``device="cpu"``.
 
 The JAX package beside it is the reference; this package imports ``torch``
 and never ``jax``. All math is FP32 (complex64). TF32 is off for matrix
@@ -22,6 +25,11 @@ from .config import (AcquisitionConfig, ContinuationConfig,  # noqa: E402
                      SolverMethod, StencilConfig, StepSizeFormula)
 from .data.qc import compensate_reciprocity, qc_report  # noqa: E402
 from .data.synthesize import RingDataset, synthesize_ring_dataset  # noqa: E402
+from .data.timedomain import (TimeDomainDataset,  # noqa: E402
+                              direct_arrival_gate, extract_frequency_data,
+                              frequency_sweep, simulate_time_domain,
+                              synthesize_time_domain_dataset,
+                              timedomain_to_ring_datasets)
 from .device import default_device  # noqa: E402
 from .fwi.calibrate import (CalibrationResult,  # noqa: E402
                             background_misfit_fn, calibrate_background_speed)
@@ -38,7 +46,9 @@ from .models.acquisition import (RingAcquisition,  # noqa: E402
                                  build_ring_acquisition)
 from .models.grid import Grid2D  # noqa: E402
 from .ops import kernel_launch_counts, reset_kernel_launch_counts  # noqa: E402
-from .ops.solve import (HelmholtzOperator, helmholtz_operator_solve,  # noqa: E402
-                        make_helmholtz_operator, solve_helmholtz)
+from .ops.krylov import KrylovResult, gmres  # noqa: E402
+from .ops.solve import (HelmholtzOperator, build_operator,  # noqa: E402
+                        helmholtz_operator_solve, make_helmholtz_operator,
+                        solve_helmholtz)
 
 __version__ = "0.1.0"

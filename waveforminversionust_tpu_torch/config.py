@@ -8,8 +8,17 @@ configuration written for the JAX package means the same thing here
 
 What the port does with each field in this slice:
 
-* ``SolverConfig.method``: only ``BANDED`` runs; ``GMRES`` and ``BORN`` raise
-  ``NotImplementedError`` (later slices).
+* ``SolverConfig.method``: all three run. ``BANDED`` through a direct
+  factor (``factorization`` below); ``GMRES`` by restarted GMRES on the
+  9-point system (``tol``, ``maxiter``), every matvec the CUDA stencil
+  kernel on CUDA tensors, with the shifted-Laplacian FFT preconditioner
+  (``shift_beta``) or, with ``gmres_two_level``, its two-level form, whose
+  coarse factor (``coarse_shift_beta``) is block-Thomas through the CUDA
+  factor and sweep kernels whatever ``factorization`` says; ``BORN`` by the
+  convergent Born series (``born_*``: GMRES on its system when
+  ``born_krylov``, else the plain series), FFTs only. The frozen-factor CG
+  (``refactor_every > 1``) takes the banded method only and raises
+  ``ValueError`` for the others, as the reference does.
 * ``SolverConfig.factorization``: ``"auto"`` and ``"pallas"`` run the
   hand-written CUDA factor and sweep kernels on CUDA tensors (their plain
   PyTorch versions on CPU tensors); ``"thomas"`` runs the plain PyTorch
@@ -68,7 +77,7 @@ class StepSizeFormula(enum.IntEnum):
 
 
 class SolverMethod(enum.Enum):
-    """Which Helmholtz solver to use (only ``BANDED`` is ported so far)."""
+    """Which Helmholtz solver to use."""
 
     BANDED = "banded"
     GMRES = "gmres"

@@ -10,10 +10,13 @@ Per iteration (nonlinearcg.py:71-169, FrequencyDomainFWI.m:76-189):
   5. CG momentum (5 formulas) -> search direction
   6. linearized solve of the search direction (the third solve)
   7. step size (3 line-search formulas, or BB) and the slowness update
-All three solves share one factorization; with ``refactor_every = K > 1``
-the factorization runs only when it % K == 0 (and at the first iteration of
-each call) and the whole stale factor, of whichever direct engine built it
-(block-Thomas, twisted or cyclic reduction), is reused in between.
+All three solves share one prepared operator: under the banded method one
+factorization; with ``refactor_every = K > 1`` the factorization runs only
+when it % K == 0 (and at the first iteration of each call) and the whole
+stale factor, of whichever direct engine built it (block-Thomas, twisted
+or cyclic reduction), is reused in between. GMRES and Born prepare their
+operator every iteration and refuse ``refactor_every > 1``, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..config import (FWIConfig, MomentumFormula, SolverConfig, SolverMethod,
                       StepSizeFormula)
 from ..models.grid import Grid2D
 from ..ops.solve import (HelmholtzOperator, factor_operator,
-                         helmholtz_operator_solve)
+                         helmholtz_operator_solve, make_helmholtz_operator)
 from ..ops.stencil import d_map as _d_map
 from ..ops.stencil import helmholtz_coefficients, pml_stretch_fields
 from .objective import (FWIData, estimate_source_strengths, illumination_map,
@@ -163,14 +166,16 @@ def make_cg_step(data: FWIData, grid: Grid2D, solver: SolverConfig,
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device) is ported in a later "
                                   "slice (ROADMAP.md A, slice 7)")
-    if solver.method != SolverMethod.BANDED:
-        raise NotImplementedError(
-            f"method={solver.method.value!r} is ported in a later slice "
-            f"(ROADMAP.md A3)")
     _validate_watchdog(fwi)
     regularize = make_cg_regularizer(grid, fwi)
     K = solver.refactor_every
     frozen = K > 1
+    banded = solver.method == SolverMethod.BANDED
+    if frozen and not banded:
+        # The reference's guard (fwi/optimizers.py:190-196); the port runs
+        # the frozen factor with every direct engine (ROADMAP.md C4).
+        raise ValueError("refactor_every > 1 (frozen-factor CG) requires the "
+                         "banded method")
     bb = fwi.step_size == StepSizeFormula.BB
     guard = fwi.reject_increase is not None
     device = data.src.device
@@ -186,16 +191,25 @@ def make_cg_step(data: FWIData, grid: Grid2D, solver: SolverConfig,
         st = carry.state
         vel, slow, sd, gprev = (st.velocity, st.slowness, st.search_dir,
                                 st.grad_prev)
-        coeffs = helmholtz_coefficients(
-            vel, grid, data.f, solver.pml, solver.stencil,
-            attenuation=data.attenuation, pml_fields=pml_fields)
-        do_factor = not frozen or local == 0 or it % K == 0
-        factor = factor_operator(coeffs, solver) if do_factor else carry.factor
-        # A stale factor is reused whole; refinement targets the current
-        # planes (op.coeffs) on stale iterations.
-        stale = frozen and solver.stale_refine and not do_factor
-        op = HelmholtzOperator(vel=vel, f=data.f, coeffs=coeffs, precond=None,
-                               factor=factor, d_map=dmap)
+        stale = False
+        if banded:
+            coeffs = helmholtz_coefficients(
+                vel, grid, data.f, solver.pml, solver.stencil,
+                attenuation=data.attenuation, pml_fields=pml_fields)
+            do_factor = not frozen or local == 0 or it % K == 0
+            factor = (factor_operator(coeffs, solver) if do_factor
+                      else carry.factor)
+            # A stale factor is reused whole; refinement targets the
+            # current planes (op.coeffs) on stale iterations.
+            stale = frozen and solver.stale_refine and not do_factor
+            op = HelmholtzOperator(vel=vel, f=data.f, coeffs=coeffs,
+                                   precond=None, factor=factor, d_map=dmap)
+        else:
+            # GMRES (the preconditioner's parameters, and the coarse
+            # factor when two-level) or Born: one operator an iteration.
+            op = make_helmholtz_operator(vel, data.f, grid, solver,
+                                         attenuation=data.attenuation,
+                                         pml_fields=pml_fields)
 
         def solve(src, adjoint=False, extra_refine=None):
             return helmholtz_operator_solve(op, src, grid, solver,
@@ -271,7 +285,7 @@ def make_cg_step(data: FWIData, grid: Grid2D, solver: SolverConfig,
                             beta=beta, step_size=step_sz)
         new = _Carry(
             state=CGState(vel_new, slow_new, sd_new, grad, wv, adj_wv),
-            factor=factor if frozen else None,
+            factor=op.factor if frozen else None,
             slow_prev=slow_next_prev if (bb or guard) else None,
             prev_loss=prev_loss, restart=restart)
         return new, metrics

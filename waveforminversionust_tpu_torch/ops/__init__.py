@@ -1,5 +1,6 @@
 """Operators of the port: stencil planes, applies, the block-Thomas,
-twisted and cyclic-reduction direct engines, their CUDA kernels, and the
+twisted and cyclic-reduction direct engines, their CUDA kernels, GMRES with
+its shifted-Laplacian preconditioners, the convergent Born series, and the
 Helmholtz solves."""
 
 

@@ -1,28 +1,37 @@
-"""Helmholtz solves through a direct factor: block-Thomas, twisted or
-cyclic reduction (port of the banded subset of
-``waveforminversionust_tpu/ops/solve.py``). ``solve_helmholtz`` is
-differentiable by ``torch.autograd`` (the reference's custom VJP as
-``_FDSolve``: the backward is one adjoint solve through the forward's
-factor).
+"""Helmholtz solves (port of ``waveforminversionust_tpu/ops/solve.py``):
+through a direct factor (block-Thomas, twisted or cyclic reduction), by
+GMRES on the 9-point system with a shifted-Laplacian preconditioner (one-
+or two-level), or by the convergent Born series. ``solve_helmholtz`` is
+differentiable by ``torch.autograd`` under every method (the reference's
+custom VJPs as ``_FDSolve``, ``_GMRESSolve`` and ``_BornSolve``).
 
 Boundary-row bookkeeping, as in the reference: the planes describe the
 balanced operator H_s = D H, D = diag(1/h^2 on the border, 1 inside).
   * forward solve  H u = s   <=>  H_s u = D s        (scale the RHS by D)
   * adjoint solve  H^H u = s <=>  H_s^H w = s, u = D w  (balanced w-space)
+The u-space H^H is the broken form for GMRES: its border unknowns carry
+unit column weight inside an O(1e6) operator and FP32 GMRES stalls there;
+H_s^H only rescales those columns up to the interior's magnitude.
 
 Kernel dispatch (see ``config.py``): ``factorization`` "auto"/"pallas" runs
 the CUDA factor and sweep kernels (their plain versions on CPU tensors),
 "thomas" the plain PyTorch block-Thomas everywhere, "twisted" the CUDA
 twisted factor and sweep kernels, "cr" cyclic reduction with the CUDA
 batched pivot inverse; ``fused_apply`` "off" runs the plain apply, anything
-else the CUDA stencil kernel. The sweeps follow the type of the factor they
-are handed, not the configuration: the frozen-factor CG carries a factor
-across iterations. No wrapper falls back: a CUDA tensor launches the kernel
-or raises.
+else the CUDA stencil kernel, which is also every GMRES matvec. The sweeps
+follow the type of the factor they are handed, not the configuration: the
+frozen-factor CG carries a factor across iterations. No wrapper falls back:
+a CUDA tensor launches the kernel or raises.
+
+GMRES follows the JAX package's split path, the one it runs off the CPU:
+the operator path honours ``gmres_two_level`` (the coarse factor is
+block-Thomas, K1 and K2 on the card). Born follows its native path, which
+honours ``born_krylov``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,15 +41,20 @@ from ..config import SolverConfig, SolverMethod
 from ..models.grid import Grid2D
 from . import apply, banded, cyclic
 from .banded import BandedFactor
+from .born import born_gmres_solve, born_series_solve
 from .cyclic import CRFactor
 from .kernel_factor import banded_factor_kernel
 from .kernel_stencil import h_apply_kernel
 from .kernel_sweep import banded_solve_kernel
 from .kernel_twisted import twisted_factor_kernel, twisted_solve_kernel
+from .krylov import gmres
+from .preconditioner import (PrecondParams, coarse_grid,
+                             make_fft_preconditioner,
+                             make_two_level_preconditioner, shifted_k2)
 from .twisted import TwistedFactor
 from .stencil import STENCIL_OFFSETS
 from .stencil import d_map as _d_map
-from .stencil import helmholtz_coefficients
+from .stencil import helmholtz_coefficients, stencil_params
 
 
 class SolveInfo(NamedTuple):
@@ -56,18 +70,12 @@ class HelmholtzOperator(NamedTuple):
     vel: torch.Tensor
     f: float
     coeffs: torch.Tensor          # H_s planes (9, ny, nx) complex64
-    precond: None                 # GMRES preconditioner (not ported yet)
+    precond: PrecondParams | None  # GMRES's shifted-Laplacian parameters
+    # the direct factor (banded method), or the two-level GMRES's coarse
+    # block-Thomas factor
     factor: BandedFactor | TwistedFactor | CRFactor | None
     d_map: torch.Tensor           # (ny, nx) float32
     attenuation: torch.Tensor | None = None
-
-
-def _check_method(cfg: SolverConfig):
-    if cfg.method != SolverMethod.BANDED:
-        raise NotImplementedError(
-            f"method={cfg.method.value!r}: the GMRES and Born solvers are "
-            f"ported in a later slice (ROADMAP.md A3); use the banded "
-            f"method")
 
 
 def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig):
@@ -147,27 +155,114 @@ def banded_solve_refined(factor, rhs: torch.Tensor,
     return x
 
 
+def build_operator(vel, f, grid: Grid2D, cfg: SolverConfig = SolverConfig(),
+                   adjoint: bool = False, attenuation=None, pml_fields=None):
+    """Coefficient planes of H_s (or H_s^H) and the shifted-Laplacian
+    parameters for the operator solved: the shift's sign is -1 for the
+    forward operator and +1 for the adjoint (the two symbols are
+    conjugates, S0 and S1 being real). The planes stay differentiable in
+    ``vel`` and ``attenuation``; the parameters are taken from a detached
+    ``vel``."""
+    coeffs = helmholtz_coefficients(vel, grid, f, cfg.pml, cfg.stencil,
+                                    attenuation=attenuation,
+                                    pml_fields=pml_fields)
+    if adjoint:
+        coeffs = apply.adjoint_coefficients(coeffs)
+    vel_sg = torch.as_tensor(vel, dtype=torch.float32).detach()
+    b, d, e = stencil_params(vel_sg.min(), vel_sg.max(), f, grid.h,
+                             grid.aspect, cfg.stencil)
+    k2_ref = shifted_k2(vel_sg, f, cfg.shift_beta, 1.0 if adjoint else -1.0)
+    return coeffs, PrecondParams(k2_ref=k2_ref, b=b, d=d, e=e)
+
+
+def _coarse_factor(vel, f, grid: Grid2D, cfg: SolverConfig,
+                   attenuation=None) -> BandedFactor:
+    """Block-Thomas factor of the re-discretized 2h operator for the
+    two-level preconditioner (see ``preconditioner.coarse_grid``): speed
+    and attenuation restricted by injection, the same PML and stencil; one
+    factorization an operator serves its forward and adjoint corrections.
+    It is block-Thomas whatever ``factorization`` says, as in the JAX
+    package: the CUDA factor kernel on the card.
+
+    The coarse operator carries a small complex shift, ``cfg.
+    coarse_shift_beta`` of k^2 through the attenuation channel (alpha =
+    beta_c omega / (2 c)): the unshifted coarse operator is near-singular
+    at wavenumbers slightly off the fine operator's, and its correction
+    then amplifies those modes."""
+    gc = coarse_grid(grid)
+    vel_c = torch.as_tensor(vel, dtype=torch.float32).detach()[::2, ::2]
+    if attenuation is None:
+        att_c = torch.zeros_like(vel_c)
+    else:
+        att_c = torch.as_tensor(attenuation, dtype=torch.float32,
+                                device=vel_c.device)[::2, ::2]
+    if cfg.coarse_shift_beta:
+        att_c = att_c + torch.tensor(cfg.coarse_shift_beta * math.pi * f,
+                                     dtype=torch.float32,
+                                     device=vel_c.device) / vel_c
+    coeffs_c = helmholtz_coefficients(vel_c, gc, f, cfg.pml, cfg.stencil,
+                                      attenuation=att_c)
+    return banded_factor_kernel(coeffs_c)
+
+
 def make_helmholtz_operator(vel, f, grid: Grid2D,
                             cfg: SolverConfig = SolverConfig(),
                             attenuation=None, pml_fields=None,
                             mesh=None, grid_axis: str = "grid"
                             ) -> HelmholtzOperator:
-    """Build the planes of H(vel) and factor them once. ``mesh`` /
-    ``grid_axis`` (grid-sharded solves) are ported with the multi-device
-    slice; ``mesh`` raises until then."""
-    _check_method(cfg)
+    """Build the planes of H(vel) once, and what the method needs beside
+    them: the direct factor (banded), the preconditioner's parameters and,
+    with ``gmres_two_level``, the coarse factor (GMRES); the Born solve
+    re-derives its operator from ``vel``, ``f`` and ``attenuation``.
+    ``mesh`` / ``grid_axis`` (grid-sharded solves) are ported with the
+    multi-device slice; ``mesh`` raises until then."""
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device) is ported in a later "
                                   "slice (ROADMAP.md A, slice 7)")
     vel = torch.as_tensor(vel, dtype=torch.float32)
-    coeffs = helmholtz_coefficients(vel, grid, f, cfg.pml, cfg.stencil,
-                                    attenuation=attenuation,
-                                    pml_fields=pml_fields)
+    precond = factor = None
+    if cfg.method == SolverMethod.GMRES:
+        coeffs, precond = build_operator(vel, f, grid, cfg,
+                                         attenuation=attenuation,
+                                         pml_fields=pml_fields)
+        if cfg.gmres_two_level:
+            factor = _coarse_factor(vel, f, grid, cfg, attenuation)
+    else:
+        coeffs = helmholtz_coefficients(vel, grid, f, cfg.pml, cfg.stencil,
+                                        attenuation=attenuation,
+                                        pml_fields=pml_fields)
+        if cfg.method == SolverMethod.BANDED:
+            factor = factor_operator(coeffs, cfg)
     return HelmholtzOperator(
-        vel=vel, f=float(f), coeffs=coeffs, precond=None,
-        factor=factor_operator(coeffs, cfg), d_map=_d_map(grid, vel.device),
+        vel=vel, f=float(f), coeffs=coeffs, precond=precond,
+        factor=factor, d_map=_d_map(grid, vel.device),
         attenuation=None if attenuation is None else torch.as_tensor(
             attenuation, dtype=torch.float32, device=vel.device))
+
+
+def _gmres_operator_solve(op: HelmholtzOperator, src, grid: Grid2D,
+                          cfg: SolverConfig, adjoint: bool, x0=None):
+    """Preconditioned GMRES on the balanced system (H_s u = D s, or H_s^H
+    w = s and u = D w): every matvec the stencil kernel on the card, the
+    one- or two-level preconditioner per ``cfg.gmres_two_level``."""
+    coeffs = apply.adjoint_coefficients(op.coeffs) if adjoint else op.coeffs
+    a_op = make_apply(coeffs, cfg)
+    if cfg.gmres_two_level and op.factor is not None:
+        m_inv = make_two_level_preconditioner(
+            grid, op.precond, a_op, op.factor, adjoint=adjoint,
+            pml_margin=cfg.pml.l_pml + 2 * grid.dx)
+    else:
+        m_inv = make_fft_preconditioner(grid, op.precond, adjoint=adjoint)
+    rhs = src if adjoint else src * op.d_map
+    if x0 is not None:
+        x0 = torch.as_tensor(x0).to(device=rhs.device, dtype=torch.complex64)
+        if x0.dim() == 2:
+            x0 = x0[None]
+        if adjoint:
+            x0 = x0 / op.d_map
+    res = gmres(a_op, rhs, m_inv=m_inv, x0=x0, tol=cfg.tol,
+                maxiter=cfg.maxiter)
+    return res.x * op.d_map if adjoint else res.x
 
 
 def helmholtz_operator_solve(op: HelmholtzOperator, src, grid: Grid2D,
@@ -179,27 +274,50 @@ def helmholtz_operator_solve(op: HelmholtzOperator, src, grid: Grid2D,
     (batch, ny, nx) or (ny, nx) complex64.
 
     ``precision`` (the ``fast_*`` sweeps of the reference) is accepted and
-    runs FP32 here. ``x0`` is a Krylov warm start and unused by the banded
-    method, as in the reference. ``extra_refine``: one more refinement pass
-    against ``op.coeffs`` when true (frozen-factor CG, stale iterations).
-    ``mesh`` / ``grid_axis`` come with the multi-device slice; ``mesh``
-    raises until then.
+    runs FP32 here. ``x0`` is GMRES's warm start (u-space) and unused by
+    the banded and Born methods, as in the reference. ``extra_refine``: one
+    more refinement pass against ``op.coeffs`` when true (frozen-factor CG,
+    stale iterations; banded only). ``mesh`` / ``grid_axis`` come with the
+    multi-device slice; ``mesh`` raises until then.
     """
-    _check_method(cfg)
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device) is ported in a later "
                                   "slice (ROADMAP.md A, slice 7)")
-    src = torch.as_tensor(src).to(torch.complex64)
+    src = torch.as_tensor(src).to(device=op.vel.device, dtype=torch.complex64)
     single = src.dim() == 2
     if single:
         src = src[None]
-    rhs = src if adjoint else src * op.d_map
-    u = banded_solve_refined(op.factor, rhs.contiguous(), cfg, adjoint=adjoint,
-                             extra_refine=extra_refine,
-                             refine_coeffs=op.coeffs)
-    if adjoint:
-        u = u * op.d_map
+    if cfg.method == SolverMethod.BORN:
+        u = _born_solve_impl(op.vel, src, op.f, grid, cfg, adjoint,
+                             attenuation=op.attenuation)
+    elif cfg.method == SolverMethod.GMRES:
+        u = _gmres_operator_solve(op, src, grid, cfg, adjoint, x0)
+    else:
+        rhs = src if adjoint else src * op.d_map
+        u = banded_solve_refined(op.factor, rhs.contiguous(), cfg,
+                                 adjoint=adjoint, extra_refine=extra_refine,
+                                 refine_coeffs=op.coeffs)
+        if adjoint:
+            u = u * op.d_map
     return u[0] if single else u
+
+
+def _born_solve_impl(vel, rhs, f, grid: Grid2D, cfg: SolverConfig,
+                     adjoint: bool, attenuation=None):
+    """The Born solve of ``cfg``: GMRES on the CBS system
+    (``born_krylov``, the default) or the plain series."""
+    if cfg.born_krylov:
+        u, _ = born_gmres_solve(vel, rhs, f, grid, cfg.born_pml,
+                                adjoint=adjoint, tol=cfg.tol,
+                                maxiter=cfg.born_iter_cap,
+                                restart=cfg.born_restart,
+                                attenuation=attenuation)
+    else:
+        u, _ = born_series_solve(vel, rhs, f, grid, cfg.born_pml,
+                                 adjoint=adjoint, iter_cap=cfg.born_iter_cap,
+                                 iter_scale=cfg.born_iter_scale,
+                                 attenuation=attenuation)
+    return u
 
 
 def _plane_cotangent(lam: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -254,6 +372,91 @@ class _FDSolve(torch.autograd.Function):
         return coeffs_bar, lam, None
 
 
+class _GMRESSolve(torch.autograd.Function):
+    """u = H_s^-1 rhs by right-preconditioned GMRES, differentiable in the
+    planes and the right-hand side (the JAX package's split-engine custom
+    VJP, ``ops/solve.py:189-250``). GMRES keeps no factor; the backward is
+    a GMRES solve of the Hermitian planes with the conjugate-symbol
+    preconditioner, which is the solve PyTorch's dL/d conj(u) asks for:
+
+        lam = H_s^-H u_bar;  rhs_bar = lam;
+        coeffs_bar[s] = -sum_b lam * conj(shift_s(u))
+
+    Planes that hold H_s^H (an adjoint solve, whose parameters carry the
+    adjoint shift) need nothing else: their Hermitian is H_s and the
+    conjugate of their symbol is the forward one."""
+
+    @staticmethod
+    def forward(ctx, coeffs, rhs, precond, grid, cfg):
+        coeffs = _dense(coeffs)
+        u = gmres(make_apply(coeffs, cfg), _dense(rhs),
+                  m_inv=make_fft_preconditioner(grid, precond),
+                  tol=cfg.tol, maxiter=cfg.maxiter).x
+        ctx.precond, ctx.grid, ctx.cfg = precond, grid, cfg
+        ctx.save_for_backward(coeffs, u)
+        return u
+
+    @staticmethod
+    def backward(ctx, u_bar):
+        coeffs, u = ctx.saved_tensors
+        cfg = ctx.cfg
+        lam = gmres(make_apply(apply.adjoint_coefficients(coeffs), cfg),
+                    _dense(u_bar),
+                    m_inv=make_fft_preconditioner(ctx.grid, ctx.precond,
+                                                  adjoint=True),
+                    tol=cfg.tol, maxiter=cfg.maxiter).x
+        coeffs_bar = (-_plane_cotangent(lam, u) if ctx.needs_input_grad[0]
+                      else None)
+        return coeffs_bar, lam, None, None, None
+
+
+class _BornSolve(torch.autograd.Function):
+    """The Born solve, differentiable in ``vel``, the attenuation map
+    ``alpha`` (None for a lossless medium) and the right-hand side (the
+    JAX package's ``_born_solve`` and ``_born_solve_lossy``,
+    ``ops/solve.py:326-393``, in one function). The Born operator A is
+    complex-symmetric (a diagonal potential and an even convolution
+    kernel), so the JAX package's transpose solve is a solve with A
+    itself; PyTorch hands dL/d conj(u), so here lam = conj(A^-1
+    conj(u_bar)), the conjugate of the JAX package's lam. With the interior
+    k^2 = (omega/c + i sgn alpha)^2 and s = sum_b conj(lam) u:
+
+        vel_bar   = -Re(s dk2/dc),   dk2/dc     = -2 (omega/c^2) k_c
+        alpha_bar = -Re(s dk2/dalpha), dk2/dalpha = 2 i sgn k_c
+
+    (for alpha None the reference's lossless form, dk2/dc = -2 omega^2 /
+    c^3). As in the reference, the boundary layer's and the shift's
+    dependence on ``vel`` is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, vel, alpha, rhs, f, grid, cfg, adjoint):
+        u = _born_solve_impl(vel, _dense(rhs), f, grid, cfg, adjoint,
+                             attenuation=alpha)
+        ctx.save_for_backward(vel, alpha, u)
+        ctx.args = (f, grid, cfg, adjoint)
+        return u
+
+    @staticmethod
+    def backward(ctx, u_bar):
+        vel, alpha, u = ctx.saved_tensors
+        f, grid, cfg, adjoint = ctx.args
+        lam = torch.conj(_born_solve_impl(
+            vel, _dense(torch.conj(u_bar)), f, grid, cfg, adjoint,
+            attenuation=alpha))
+        s = torch.sum(torch.conj(lam) * u, dim=0)
+        omega = 2 * math.pi * f
+        alpha_bar = None
+        if alpha is None:
+            vel_bar = -s.real * (-2 * omega ** 2 / vel ** 3)
+        else:
+            sign = (float(cfg.born_pml.sign_convention)
+                    * (-1.0 if adjoint else 1.0))
+            k_c = torch.complex(omega / vel, sign * alpha)
+            vel_bar = -(s * (-2.0 * (omega / vel ** 2) * k_c)).real
+            alpha_bar = -(s * ((2j * sign) * k_c)).real
+        return vel_bar, alpha_bar, lam.resolve_conj(), None, None, None, None
+
+
 class _Apply(torch.autograd.Function):
     """out = H v through the CUDA stencil kernel (the plain apply on CPU
     tensors), differentiable in the planes and v: v_bar = H^H out_bar (the
@@ -280,32 +483,52 @@ class _Apply(torch.autograd.Function):
 def solve_helmholtz(vel, src, f, grid: Grid2D,
                     config: SolverConfig = SolverConfig(),
                     adjoint: bool = False, x0=None, attenuation=None):
-    """Solve H(vel) u = src (or H^H u = src) for a batch of sources, one
-    factorization per call; returns (u, SolveInfo) with the true relative
-    residual per source. The adjoint factors the H_s^H planes and solves
-    in balanced w-space (u = D w), as the reference does.
+    """Solve H(vel) u = src (or H^H u = src) for a batch of sources; returns
+    (u, SolveInfo). The FD methods return the true relative residual per
+    source; Born returns zeros, as the reference does. The adjoint solves
+    the H_s^H planes in balanced w-space (u = D w), as the reference does.
 
     Differentiable in ``vel``, ``src`` and ``attenuation`` by
-    ``torch.autograd``: the solve is :class:`_FDSolve`, whose backward is
-    one adjoint solve through the forward's own factor; the planes'
-    cotangent flows into ``vel`` and ``attenuation`` through
+    ``torch.autograd`` under every method: the banded solve is
+    :class:`_FDSolve` (its backward one adjoint solve through the forward's
+    own factor), GMRES :class:`_GMRESSolve` (its backward a GMRES solve of
+    the Hermitian planes), Born :class:`_BornSolve`; the planes' cotangent
+    flows into ``vel`` and ``attenuation`` through
     :func:`helmholtz_coefficients`. A complex ``src`` receives
     dL/d conj(src), the conjugate of what ``jax.grad`` returns.
 
-    ``x0``: warm start, held constant. The solve is then for the
-    correction from x0, and the residual src - H x0 stays differentiable
-    in the planes, so the gradient is that of the cold solve. The residual
-    diagnostic is computed outside the graph."""
-    _check_method(config)
+    ``x0``: warm start of the FD methods, held constant. The solve is then
+    for the correction from x0, and the residual src - H x0 stays
+    differentiable in the planes, so the gradient is that of the cold
+    solve. Born ignores it, as the reference does. The residual diagnostic
+    is computed outside the graph."""
     vel = torch.as_tensor(vel, dtype=torch.float32)
     src = torch.as_tensor(src).to(device=vel.device, dtype=torch.complex64)
     single = src.dim() == 2
     if single:
         src = src[None]
-    coeffs = helmholtz_coefficients(vel, grid, f, config.pml, config.stencil,
-                                    attenuation=attenuation)
-    if adjoint:
-        coeffs = apply.adjoint_coefficients(coeffs)
+    if config.method == SolverMethod.BORN:
+        alpha = (None if attenuation is None else torch.as_tensor(
+            attenuation, dtype=torch.float32, device=vel.device))
+        u = _BornSolve.apply(vel, alpha, src, float(f), grid, config,
+                             bool(adjoint))
+        info = SolveInfo(torch.zeros(src.shape[0], device=vel.device), -1)
+        return (u[0] if single else u), info
+    if config.method == SolverMethod.GMRES:
+        coeffs, precond = build_operator(vel, f, grid, config, adjoint,
+                                         attenuation)
+
+        def solve(rhs):
+            return _GMRESSolve.apply(coeffs, rhs, precond, grid, config)
+    else:
+        coeffs = helmholtz_coefficients(vel, grid, f, config.pml,
+                                        config.stencil,
+                                        attenuation=attenuation)
+        if adjoint:
+            coeffs = apply.adjoint_coefficients(coeffs)
+
+        def solve(rhs):
+            return _FDSolve.apply(coeffs, rhs, config)
     dmap = _d_map(grid, vel.device)
     rhs = src if adjoint else src * dmap
     if x0 is not None:
@@ -317,9 +540,9 @@ def solve_helmholtz(vel, src, f, grid: Grid2D,
             x0 = x0 / dmap
         r0 = rhs - (apply.h_apply(coeffs, x0) if config.fused_apply == "off"
                     else _Apply.apply(coeffs, x0))
-        w = x0 + _FDSolve.apply(coeffs, r0, config)
+        w = x0 + solve(r0)
     else:
-        w = _FDSolve.apply(coeffs, rhs, config)
+        w = solve(rhs)
     with torch.no_grad():
         res = make_apply(coeffs.detach(), config)(w.detach()) - rhs.detach()
         rel = torch.sqrt(

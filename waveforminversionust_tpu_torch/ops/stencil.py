@@ -207,3 +207,52 @@ def helmholtz_coefficients(vel, grid: Grid2D, f, pml: PMLConfig = PMLConfig(),
         dirichlet_value = dirichlet_scale(grid)
     coeffs[0] += boundary_mask(grid, dev) * dirichlet_value
     return coeffs
+
+
+def constant_stencil_symbol_parts(b, d, e, h: float, g: float,
+                                  nfy: int, nfx: int):
+    """Real decomposition of the constant-coefficient stencil symbol:
+    ``symbol(k2) = S0 + k2 * S1`` on an (nfy, nfx) periodic grid, with
+    (b, d, e) real. Returns (S0, S1) as float32 tensors on ``b``'s device.
+    The DFT angles and their cosines are float32, as in the JAX package."""
+    b = torch.as_tensor(b, dtype=torch.float32)
+    d = torch.as_tensor(d, dtype=torch.float32, device=b.device)
+    e = torch.as_tensor(e, dtype=torch.float32, device=b.device)
+    g2 = g * g
+    h2 = h * h
+    # k2-independent parts of (c0, lr, ud, corner)
+    c0_a = -b * (2 + 2 / g2) / h2
+    lr_a = (b - (1 - b) / g2) / h2
+    ud_a = (b / g2 - (1 - b)) / h2
+    co_a = ((1 - b) / 2) * (1 + 1 / g2) / h2
+    # coefficients of k2
+    c0_k = 1 - d - e
+    lr_k = d / 4
+    ud_k = d / 4
+    co_k = e / 4
+
+    def angles(n):
+        return 2 * math.pi * torch.fft.fftfreq(n, dtype=torch.float32,
+                                               device=b.device)
+
+    cy = torch.cos(angles(nfy))[:, None]
+    cx = torch.cos(angles(nfx))[None, :]
+
+    def combine(c0, lr, ud, co):
+        return c0 + 2 * lr * cx + 2 * ud * cy + 4 * co * cx * cy
+
+    return combine(c0_a, lr_a, ud_a, co_a), combine(c0_k, lr_k, ud_k, co_k)
+
+
+def constant_stencil_symbol(k2_ref, b, d, e, h: float, g: float,
+                            nfy: int, nfx: int) -> torch.Tensor:
+    """Fourier symbol (nfy, nfx) complex64 of the constant-coefficient
+    9-point stencil (A = B = C = 1, constant complex k^2 = ``k2_ref``),
+    which the DFT diagonalizes on a periodic grid; used by the
+    shifted-Laplacian preconditioner (:mod:`.preconditioner`)."""
+    s0, s1 = constant_stencil_symbol_parts(torch.as_tensor(b).real,
+                                           torch.as_tensor(d).real,
+                                           torch.as_tensor(e).real,
+                                           h, g, nfy, nfx)
+    k2 = torch.as_tensor(k2_ref, dtype=torch.complex64, device=s0.device)
+    return s0 + k2 * s1
