@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py            # the full check, ~3 minutes on an H100
+    python3 chip_smoke.py            # the full check, ~4 minutes on an H100
     python3 chip_smoke.py --phases kernels,data,profile   # a subset
 
 Phases (any failure makes the exit code non-zero):
@@ -79,7 +79,23 @@ Phases (any failure makes the exit code non-zero):
      continuation of 5 CG iterations a frequency at 301^2: synthesis
      seconds, s/iter a stage, losses falling in each stage, RMSE, launches
      as counted;
- 14. profile (only when asked for): torch.profiler over 2 iterations of each
+ 14. fwi3d: bench.py's 3D phase through the volumetric path at 64^3 / 0.75
+     mm, 16 transmitters, 300 kHz: the spectral A/B (cuFFT against the
+     dense DFT products at "highest" and "high": ms a transform pair and a
+     matvec, the field's difference; the dft transform held to the fft one
+     at rel 1e-5), the synthesis solve, 2 cold CG iterations and 4 warm
+     ones (BB, the watchdog, warm starts) after a warm-up each: s/iter,
+     matvecs a solve, loss, RMSE, peak memory; cold losses falling, warm
+     ones reaching half the first; a matvec's device time split into the
+     FFT pair, Gram-Schmidt and elementwise work (torch.profiler) beside
+     its byte bound; one forward solve at 128^3 (recorded); no kernel
+     launched;
+ 15. broadband3d: the JAX CLI's broadband3d workflow at its defaults (65^3,
+     3 x 16 elements, the 150-400 kHz comb, 4 CG iterations at 150, 275
+     and 400 kHz): synthesis seconds, extraction per line (rel < 1e-4),
+     s/iter a stage, losses falling in each stage, RMSE end < start, no
+     kernel launched;
+ 16. profile (only when asked for): torch.profiler over 2 iterations of each
      engine, a two-cycle GMRES solve (one- and two-level) and a Born
      solve: device time by kernel name and the idle share.
 
@@ -157,6 +173,7 @@ PEAK_BYTES = 3.35e12
 C64 = 8      # bytes of a complex64
 CMAC = 8     # real FP32 operations of a complex multiply-add
 SMS = 132    # streaming multiprocessors of an H100 SXM
+C3D = 1500.0  # background speed of the 3D phases [m/s]
 
 
 def log(*a):
@@ -1662,7 +1679,380 @@ class Smoke:
                                   sweep=3 * n_iter),
                    f"inversion launches {counts}")
 
-    # -- phase 14 -------------------------------------------------------
+    # -- phases 14-15: the volumetric path ------------------------------
+    def _bench3d(self, n):
+        """bench.py::bench_3d_setup's workload at n^3 / 0.75 mm: the 2 x 8
+        cylinder at 0.75 of the half width over half of it (min_angle 0.8),
+        the Gaussian 40 m/s blob on 1500 m/s, PMLConfig(a0=20, l_pml=8 d),
+        one-hot sources x 1e6 (at unit scale the squared norms of the
+        solves' right-hand sides fall into FP32's denormals,
+        bench.py:256-257). Returns (grid, acq, pml, true velocity, sources,
+        half width)."""
+        import torch
+        from waveforminversionust_tpu_torch.config import PMLConfig
+        from waveforminversionust_tpu_torch.models import acquisition3d
+        from waveforminversionust_tpu_torch.models.grid3d import Grid3D
+
+        d = 0.75e-3
+        half = (n - 1) * d / 2
+        grid = Grid3D(nx=n, ny=n, nz=n, dx=d, dy=d, dz=d, x0=-half,
+                      y0=-half, z0=-half)
+        pos = acquisition3d.cylinder_positions(n_rings=2, n_per_ring=8,
+                                               radius=0.75 * half,
+                                               z_span=0.5 * half)
+        acq = acquisition3d.build_acquisition3d(grid, pos, min_angle=0.8)
+        Z, Y, X = grid.meshgrid()
+        vel = torch.as_tensor(
+            (C3D + 40.0 * np.exp(-(X ** 2 + Y ** 2 + Z ** 2)
+                                 / (0.33 * half) ** 2)).astype(np.float32),
+            device=self.device)
+        src = acquisition3d.source_fields_3d(acq, grid) * 1e6
+        self.check(src.is_cuda, "source_fields_3d did not default to the card")
+        return grid, acq, PMLConfig(a0=20.0, l_pml=8 * d), vel, src, half
+
+    def fwi3d(self):
+        """bench.py's 3D phase (bench_3d_setup, bench_3d_cold,
+        bench_3d_warm) through the port: the spectral A/B at 64^3 x 16;
+        the synthesis solve (GMRES restart 8, tol 2e-3, cap 400,
+        "highest"); 2 cold CG iterations (clip +-100 m/s) and 4 warm ones
+        (BB, the watchdog at 1.5, warm starts), each after a warm-up run;
+        the matvec split by torch.profiler; one forward solve at 128^3."""
+        import torch
+        from waveforminversionust_tpu_torch.config import (FWIConfig,
+                                                           StepSizeFormula)
+        from waveforminversionust_tpu_torch.fwi import fwi3d
+        from waveforminversionust_tpu_torch.fwi.runner3d import reconstruction_rmse_3d
+        from waveforminversionust_tpu_torch.ops import (born3d,
+                                                        kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+
+        f = 300e3
+        grid, acq, pml, vel_true, src, half = self._bench3d(64)
+        out = self.slices["fwi3d"] = {}
+        out["spectral_ab"] = self.spectral_ab(vel_true, src, f, grid, pml)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        wv, syn_mv = born3d.born_gmres_solve_3d(vel_true, src, f, grid, pml,
+                                                maxiter=400, tol=2e-3,
+                                                restart=8)
+        torch.cuda.synchronize()
+        out.update(synthesis_s=time.perf_counter() - t0,
+                   synthesis_matvecs=syn_mv)
+        rx = torch.as_tensor(acq.rx_idx, dtype=torch.long, device=self.device)
+        data = fwi3d.build_fwi_data_3d(acq, fwi3d.sample_receivers_3d(wv, rx),
+                                       f, grid)._replace(src=src)
+        del wv
+        vel0 = torch.full(grid.shape, C3D, device=self.device)
+        truth = vel_true.cpu().numpy()
+        rmse0 = reconstruction_rmse_3d(vel0.cpu().numpy(), grid, truth,
+                                       radius=0.75 * half)
+        log(f" synthesis: {syn_mv} matvecs in {out['synthesis_s']:.4f} s "
+            f"({data.src.shape[0]} transmitters, {data.rec_obs.shape[1]} "
+            f"receivers each); rmse start {rmse0:.4f} m/s inside the array")
+        clip = (C3D - 100.0, C3D + 100.0)
+        runs = {"cold": (FWIConfig(num_iterations=2, clip_velocity=clip), 2,
+                         False),
+                "warm": (FWIConfig(num_iterations=2, clip_velocity=clip,
+                                   step_size=StepSizeFormula.BB,
+                                   reject_increase=1.5), 4, True)}
+        counts = {}
+        for name, (fwi, n_it, warm) in runs.items():
+            def run():
+                return fwi3d.nonlinear_cg_3d(
+                    vel0, data, grid, fwi, num_iterations=n_it, pml=pml,
+                    iter_cap=400, solver3d="gmres", spectral="auto",
+                    warm_start=warm)
+
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            warmup = time.perf_counter() - t0
+            solves = []
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launch_counts()
+            t0 = time.perf_counter()
+            with self.recorded(fwi3d, "born_gmres_solve_3d", solves,
+                               lambda r: r[1]):
+                vel, m = run()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            counts[name] = kernel_launch_counts()
+            loss = m.loss.cpu().numpy()
+            rmse = reconstruction_rmse_3d(vel.cpu().numpy(), grid, truth,
+                                          radius=0.75 * half)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            out[name] = dict(s_per_iter=elapsed / n_it, iterations=n_it,
+                             warmup_s=warmup, solve_matvecs=solves,
+                             loss=loss.tolist(), rmse_start=rmse0,
+                             rmse_end=rmse, peak_memory_mib=peak,
+                             launches=counts[name])
+            log(f" {name}: s/iter {elapsed / n_it:.6f} ({n_it} iterations, "
+                f"warm-up run {warmup:.2f} s); matvecs a solve {solves}; "
+                f"loss {loss.tolist()}; rmse {rmse0:.4f} -> {rmse:.4f} m/s; "
+                f"peak {peak:.1f} MiB; launches {counts[name]}")
+            for k in KERNELS:
+                self.launches[k] += counts[name][k]
+            if name == "cold":
+                self.check(np.all(np.isfinite(loss)) and loss[-1] < loss[0],
+                           f"cold losses not finite and falling: {loss}")
+            else:
+                self.check(np.all(np.isfinite(loss))
+                           and loss.min() <= 0.5 * loss[0],
+                           f"warm losses short of half the first: {loss}")
+        out["matvec_split"] = self.matvec_split(
+            lambda: born3d.born_gmres_solve_3d(
+                vel0, src, f, grid, pml, tol=0.0, maxiter=18, restart=8,
+                spectral="auto", spectral_precision="high"), 18,
+            src.numel() * C64, vel0.numel() * C64)
+        del data, src
+        out["solve_128"] = self.solve_128(f)
+        self.check(all(n == 0 for c in counts.values() for n in c.values()),
+                   f"a kernel was launched on the 3D path: {counts}")
+
+    def spectral_ab(self, vel, src, f, grid, pml):
+        """The two spectral routes of ops/born3d.py on the bench's volumes,
+        in turns (fft, dft "highest", dft "high", then back): ms of one
+        transform pair with the Green's multiply, ms of one CBS matvec,
+        and, after 18 GMRES matvecs (two cycles, restart 8) from zero, the
+        field's relative difference to the fft route's. The dft route's
+        transform pair is held to the fft route's at "highest" (rel 1e-5,
+        tests/test_born3d.py:134)."""
+        import torch
+        from waveforminversionust_tpu_torch.ops import born3d
+
+        rng = np.random.default_rng(3)
+        w = torch.as_tensor((rng.standard_normal(src.shape)
+                             + 1j * rng.standard_normal(src.shape)
+                             ).astype(np.complex64), device=self.device)
+        variants = [("fft", "highest"), ("dft", "highest"), ("dft", "high")]
+        rows, ref = {}, {}
+        for route, prec in variants + variants[::-1]:
+            key = f"{route}/{prec}"
+            greens, v_pot, gamma, _ = born3d.born_operator_3d(
+                vel, f, grid, pml, spectral=route, spectral_precision=prec)
+            pair, pair_ms = timed(lambda: greens(w), REPS)
+            _, mv_ms = timed(lambda: gamma * (w - greens(v_pot * w)), REPS)
+            row = rows.setdefault(key, dict(pair_ms=[], matvec_ms=[]))
+            row["pair_ms"].append(pair_ms)
+            row["matvec_ms"].append(mv_ms)
+            if "field_rel" in row:
+                continue
+            u, _ = born3d.born_gmres_solve_3d(
+                vel, src, f, grid, pml, tol=0.0, maxiter=18, restart=8,
+                spectral=route, spectral_precision=prec)
+            if not ref:
+                ref.update(pair=pair, field=u)
+            row.update(pair_rel=rel_err(pair, ref["pair"]),
+                       field_rel=rel_err(u, ref["field"]))
+        auto = "dft" if born3d._use_dft("auto") else "fft"
+        for key, row in rows.items():
+            log(f" spectral {key}: transform pair with the Green's multiply "
+                f"{row['pair_ms']} ms, matvec {row['matvec_ms']} ms over "
+                f"{src.shape[0]} x {grid.nx}^3; pair rel {row['pair_rel']:.3e}"
+                f", field after 18 matvecs rel {row['field_rel']:.3e} "
+                f"(to fft/highest)")
+        log(f" spectral=\"auto\" on this card at {grid.nx}^3: {auto}")
+        rows["auto"] = auto
+        self.check(rows["dft/highest"]["pair_rel"] < 1e-5,
+                   f"dft route off the fft route: {rows['dft/highest']}")
+        return rows
+
+    def matvec_split(self, fn, matvecs, field_bytes, volume_bytes):
+        """Device time of ``fn`` (a GMRES solve of ``matvecs`` matvecs)
+        under torch.profiler, per matvec, beside the unprofiled wall time
+        (the idle share is taken against it) and the device launches, by
+        what launched each kernel: the
+        FFT pair (``aten::_fft_c2c``), the Krylov basis work (the
+        Gram-Schmidt inner products and updates, norms and V y) or the
+        elementwise rest; beside the bytes of a matvec (the field in and
+        out, the three complex coefficient volumes in) and of an average
+        Arnoldi step
+        at restart 8 (4.5 basis fields and w read, v_j+1 written) at 3.35
+        TB/s."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        basis_ops = ("aten::linalg_vecdot", "aten::addcmul",
+                     "aten::linalg_vector_norm", "aten::bmm")
+
+        def category(ev):
+            while ev is not None:
+                if "fft" in ev.name:
+                    return "fft_pair"
+                if ev.name in basis_ops:
+                    return "gram_schmidt"
+                ev = ev.cpu_parent
+            return "elementwise"
+
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        split = dict(fft_pair=0.0, gram_schmidt=0.0, elementwise=0.0)
+        launches = 0
+        for ev in prof.events():
+            kernels = getattr(ev, "kernels", None) or []
+            launches += len(kernels)
+            us = sum(k.duration for k in kernels)
+            if us:
+                split[category(ev)] += us / 1e3 / matvecs
+        busy = sum(split.values())
+        bound_mv = (2 * field_bytes + 3 * volume_bytes) / PEAK_BYTES * 1e3
+        bound_gs = 6.5 * field_bytes / PEAK_BYTES * 1e3
+        res = dict(ms_per_matvec=plain_wall * 1e3 / matvecs,
+                   profiled_ms_per_matvec=wall * 1e3 / matvecs,
+                   device_ms_per_matvec=busy,
+                   device_launches_per_matvec=launches / matvecs,
+                   idle_share=max(0.0, 1 - busy * matvecs / 1e3 / plain_wall),
+                   bound_matvec_ms=bound_mv, bound_arnoldi_step_ms=bound_gs,
+                   **{f"{k}_ms": v for k, v in split.items()})
+        if busy == 0:
+            log(" matvec split: torch.profiler gave no device time "
+                "(not measured)")
+        log(f" a matvec of {matvecs} (2 GMRES cycles): {res}")
+        return res
+
+    def solve_128(self, f):
+        """One forward GMRES solve (restart 8, tol 2e-3, cap 400) of the
+        bench's workload at 128^3 / 16 transmitters: matvecs, seconds, peak
+        memory. Recorded, not held."""
+        import torch
+        from waveforminversionust_tpu_torch.ops import born3d
+
+        grid, _, pml, vel, src, _ = self._bench3d(128)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        u, mv = born3d.born_gmres_solve_3d(vel, src, f, grid, pml,
+                                           maxiter=400, tol=2e-3, restart=8)
+        torch.cuda.synchronize()
+        res = dict(matvecs=mv, seconds=time.perf_counter() - t0,
+                   peak_memory_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   finite=bool(torch.isfinite(u).all()))
+        log(f" one forward solve at 128^3 x {src.shape[0]}: {res}")
+        return res
+
+    def broadband3d(self):
+        """The JAX CLI's broadband3d workflow at its defaults (cli.py:
+        333-400, 635-678) without the travel-time start: 65^3 / 0.75 mm, 3
+        rings x 16 elements (radius 18 mm over 12 mm, min_angle 0.7), a 90
+        m/s blob; the spectral A/B at this width (275 kHz); traces over the
+        150-400 kHz comb in 25 kHz steps (GMRES
+        tol 1e-5, restart 16), extraction held to the comb's receiver
+        matrices, then 4 CG iterations at each of 150, 275 and 400 kHz
+        (GMRES, cap 400, clip +-2.5 x 90 m/s)."""
+        import torch
+        from waveforminversionust_tpu_torch.config import (ContinuationConfig,
+                                                           FWIConfig, PMLConfig)
+        from waveforminversionust_tpu_torch.data import timedomain, timedomain3d
+        from waveforminversionust_tpu_torch.fwi import fwi3d
+        from waveforminversionust_tpu_torch.fwi.runner3d import invert_dataset_3d
+        from waveforminversionust_tpu_torch.models.acquisition3d import (
+            build_acquisition3d, cylinder_positions, source_fields_3d)
+        from waveforminversionust_tpu_torch.models.grid3d import Grid3D
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+
+        dv, radius = 90.0, 18e-3
+        grid = Grid3D.centered(24e-3, 0.75e-3)
+        pos = cylinder_positions(3, 16, radius, 12e-3)
+        pml = PMLConfig(a0=20.0, l_pml=9e-3)
+        Z, Y, X = grid.meshgrid()
+        r2 = (X - 0.15 * radius) ** 2 + Y ** 2 + Z ** 2
+        vel = (C3D + dv * np.exp(-r2 / (2 * (8e-3 / 2) ** 2))).astype(np.float32)
+        acq = build_acquisition3d(grid, pos, min_angle=0.7)
+        self.slices["broadband3d"] = dict(spectral_ab=self.spectral_ab(
+            torch.as_tensor(vel, device=self.device),
+            source_fields_3d(acq, grid) * 1e6, 0.275e6, grid, pml))
+
+        comb, line_mv = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        with self.recorded(timedomain3d, "_sweep_record_3d", comb, lambda r: r), \
+                self.recorded(fwi3d, "born_gmres_solve_3d", line_mv,
+                              lambda r: r[1]):
+            td = timedomain3d.synthesize_time_domain_dataset_3d(
+                vel, grid, pos, f_low=0.15e6, f_high=0.40e6, df=0.025e6,
+                pml=pml, seed=0)
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+        syn_counts = kernel_launch_counts()
+        synth_peak = torch.cuda.max_memory_allocated() / 2**20
+        lines = timedomain.extract_frequency_data(td.traces, td.times,
+                                                  td.freqs, td.df, td.spectrum)
+        rec = comb[0].cpu().numpy()
+        line_rel = [float(np.linalg.norm(lines[i] - rec[i])
+                          / np.linalg.norm(rec[i])) for i in range(len(td.freqs))]
+        log(f" traces {td.traces.shape} over {len(td.freqs)} comb lines on "
+            f"{grid.nx}^3 in {synth_s:.2f} s, matvecs a line {line_mv}, peak "
+            f"{synth_peak:.1f} MiB; launches {syn_counts}; extraction vs the "
+            f"comb's receiver matrices, rel by line "
+            f"{[float(f'{e:.2e}') for e in line_rel]} (held to 1e-4)")
+        self.check(max(line_rel) < 1e-4, f"extraction off: {line_rel}")
+
+        freqs, n_stage = (0.15e6, 0.275e6, 0.40e6), 4
+        _, datasets = timedomain3d.timedomain_to_fwi_data_3d(td, freqs, grid,
+                                                             min_angle=0.7)
+        ends, solves = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        with self.recorded(fwi3d, "born_gmres_solve_3d", solves,
+                           lambda r: r[1]):
+            res = invert_dataset_3d(
+                datasets, grid,
+                FWIConfig(c_init=C3D, clip_velocity=(C3D - 2.5 * dv,
+                                                     C3D + 2.5 * dv)),
+                continuation=ContinuationConfig(
+                    frequencies=freqs, iterations_per_frequency=n_stage),
+                pml=pml, solver3d="gmres", iter_cap=400,
+                callback=lambda *a: ends.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        counts = kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        stage_s = np.diff([t0] + ends)
+        loss = res.metrics["loss"]
+        rmse0 = float(np.sqrt(np.mean((C3D - vel) ** 2)))
+        rmse = float(np.sqrt(np.mean((res.velocity - vel) ** 2)))
+        log(f" continuation {freqs}, {n_stage} iterations each: s/iter by "
+            f"stage {(stage_s / n_stage).tolist()}; matvecs a solve {solves}; "
+            f"loss {loss.tolist()}; rmse start {rmse0:.4f} end {rmse:.4f} "
+            f"m/s; peak {peak:.1f} MiB; launches {counts}")
+        self.slices["broadband3d"].update(
+            synthesis_s=synth_s, comb_lines=len(td.freqs),
+            synthesis_matvecs=line_mv, synthesis_peak_memory_mib=synth_peak,
+            extraction_rel=line_rel,
+            s_per_iter_by_stage=(stage_s / n_stage).tolist(),
+            solve_matvecs=solves, loss=loss.tolist(), rmse_start=rmse0,
+            rmse_end=rmse, launches=counts, synthesis_launches=syn_counts,
+            peak_memory_mib=peak)
+        for k in KERNELS:
+            self.launches[k] += counts[k] + syn_counts[k]
+        n_iter = n_stage * len(freqs)
+        self.check(np.all(np.isfinite(loss)) and all(
+            loss[i + n_stage - 1] < loss[i] for i in range(0, n_iter, n_stage)),
+            f"stage losses not finite and falling: {loss}")
+        self.check(rmse < rmse0, f"rmse {rmse} not below the start {rmse0}")
+        self.check(all(n == 0 for n in list(counts.values())
+                       + list(syn_counts.values())),
+                   f"a kernel was launched on the 3D path: {syn_counts}, "
+                   f"{counts}")
+
+    # -- phase 16 -------------------------------------------------------
     def profile(self):
         """torch.profiler over 2 iterations (one factored, one stale) of
         each engine, and over one two-cycle GMRES forward solve (one- and
@@ -1740,6 +2130,7 @@ def nvidia_smi(query="name,power.limit") -> str:
 SLICES = ("slice", "slice_twisted", "slice_cr")
 PATHS = SLICES + ("parity", "intake", "runner", "lbfgs", "gn", "multifreq",
                   "gmres", "born", "broadband", "profile")
+VOLUMES = ("fwi3d", "broadband3d")  # the 3D phases need no 2D data
 
 
 def main(argv=None) -> int:
@@ -1747,10 +2138,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,data,slice,slice_twisted,slice_cr,"
                             "parity,intake,runner,lbfgs,gn,multifreq,gmres,"
-                            "born,broadband",
+                            "born,broadband,fwi3d,broadband3d",
                     help="comma-separated subset of kernels,data,slice,"
                          "slice_twisted,slice_cr,parity,intake,runner,lbfgs,"
-                         "gn,multifreq,gmres,born,broadband,profile")
+                         "gn,multifreq,gmres,born,broadband,fwi3d,"
+                         "broadband3d,profile")
     args = ap.parse_args(argv)
 
     import torch
@@ -1784,6 +2176,9 @@ def main(argv=None) -> int:
             smoke.phase("data", smoke.data)
         for name in PATHS:
             if name in phases and "data" not in smoke.failures:
+                smoke.phase(name, getattr(smoke, name))
+        for name in VOLUMES:
+            if name in phases:
                 smoke.phase(name, getattr(smoke, name))
 
     rows = []

@@ -3,6 +3,7 @@ tests hold their methods and solvers against:
 
     python tests/golden/generate_torch.py            # torch_methods.npz
     python tests/golden/generate_torch.py solvers    # torch_solvers.npz
+    python tests/golden/generate_torch.py 3d         # torch_3d.npz
 
 Each of those JAX functions compiles for 5-20 s on one CPU core, which the
 tests cannot afford one by one (each test module keeps one live JAX
@@ -20,6 +21,14 @@ one the port follows), one- and two-level, on the 21x21 planes, and its
 gradient; the Born solves and their gradients on tests/test_solvers.py's
 61x61 blob; 2 CG iterations with GMRES and with Born on a 21x21 ring of 8
 elements; and tests/test_timedomain.py's broadband chain.
+
+torch_3d.npz (tests/test_torch_born3d.py, test_torch_fwi3d.py,
+test_torch_timedomain3d.py): the volumetric path on a 15^3 grid (1.5 mm):
+the 3D Born solves, GMRES and the plain series, forward, adjoint and lossy;
+the 3D objective, the scattered-field data and 2-3 iterations of 3D CG
+(the plain series, GMRES cold and warm, encoded, BB with the watchdog) on
+an 8-element ring; the 3D broadband traces of an 8-element cylinder and a
+two-stage invert_dataset_3d over them.
 """
 
 import os
@@ -367,5 +376,135 @@ def main_solvers():
     print(f"wrote {OUT_SOLVERS}: {len(out)} arrays")
 
 
+# -- the 3D path (torch_3d.npz) ------------------------------------------------
+OUT_3D = os.path.join(os.path.dirname(__file__), "torch_3d.npz")
+# 15^3: a smooth FFT length (a 17-point FFT, prime, costs ~10x as much
+# a voxel on the CPU).
+G3_EXTENT, G3_H = 10.5e-3, 1.5e-3             # 15^3
+F3, C3 = 200e3, 1500.0
+PML3 = dict(a0=20.0, l_pml=4.5e-3)
+ALPHA3 = 3.0                                  # Np/m, the lossy cases
+B3_TOL, B3_MAXITER, B3_RESTART = 1e-6, 600, 8  # the single solves
+B3_SERIES_CAP = 2000
+RING3 = dict(n_rings=1, n_per_ring=8, radius=6e-3, z_span=0.0)
+MIN_ANGLE3 = 0.8
+SRC_SCALE3 = 1e6        # keeps |rhs|^2 in FP32's normal range (bench.py)
+CG3_CAP, CG3_TOL = 500, 1e-4
+# The objective is taken at the inversions' default start (FWIConfig.c_init)
+# rather than at C3, where the residual is 9% of the gathers and its float32
+# rounding, amplified ~20x, would be all the misfit's last digits carry.
+OBJ3_C = 1480.0
+CG3_CLIP = (C3 - 100.0, C3 + 100.0)
+ENC3_M, ENC3_SEED = 2, 5
+TD3_POS = dict(n_rings=2, n_per_ring=4, radius=6e-3, z_span=6e-3)
+TD3_BAND = dict(f_low=0.2e6, f_high=0.3e6, df=0.05e6)
+TD3_SEED = 3
+TD3_FREQS = (0.2e6, 0.3e6)
+TD3_CAP, TD3_ITERS = 400, 2
+
+
+def blob3d(grid, dc=40.0, radius=4e-3):
+    """The 3D tests' Gaussian blob on C3 (tests/test_fwi3d.py::_blob);
+    either package's Grid3D."""
+    Z, Y, X = grid.meshgrid()
+    return (C3 + dc * np.exp(-(X ** 2 + Y ** 2 + Z ** 2) / radius ** 2)
+            ).astype(np.float32)
+
+
+def born3d_sources(shape):
+    """Two seeded random complex sources (2,) + shape."""
+    rng = np.random.default_rng(11)
+    return (rng.standard_normal((2,) + tuple(shape))
+            + 1j * rng.standard_normal((2,) + tuple(shape))
+            ).astype(np.complex64)
+
+
+def main_3d():
+    from waveforminversionust_tpu import StepSizeFormula
+    from waveforminversionust_tpu.data import timedomain3d
+    from waveforminversionust_tpu.fwi import fwi3d, runner3d
+    from waveforminversionust_tpu.models import acquisition3d
+    from waveforminversionust_tpu.models.grid3d import Grid3D
+    from waveforminversionust_tpu.ops import born3d, cpx
+
+    out = {}
+    grid = Grid3D.centered(G3_EXTENT, G3_H)
+    pml = PMLConfig(**PML3)
+    vel = blob3d(grid)
+    alpha = np.full(grid.shape, ALPHA3, np.float32)
+    src = born3d_sources(grid.shape)
+    for adjoint in (False, True):
+        for lossy in (False, True):
+            key = f"{int(adjoint)}_{int(lossy)}"
+            u, n = born3d.born_gmres_solve_3d(
+                vel, cpx.of(src), F3, grid, pml, adjoint=adjoint,
+                tol=B3_TOL, maxiter=B3_MAXITER, restart=B3_RESTART,
+                attenuation=alpha if lossy else None)
+            out[f"b3_gmres_{key}"] = cpx.to_numpy(u)
+            out[f"b3_gmres_n_{key}"] = int(n)
+        u, n = born3d.born_series_solve_3d(vel, cpx.of(src), F3, grid, pml,
+                                           adjoint=adjoint,
+                                           iter_cap=B3_SERIES_CAP)
+        out[f"b3_series_{int(adjoint)}"] = cpx.to_numpy(u)
+        out[f"b3_series_n_{int(adjoint)}"] = int(n)
+
+    def dataset(min_angle):
+        pos = acquisition3d.cylinder_positions(**RING3)
+        acq = acquisition3d.build_acquisition3d(grid, pos,
+                                                min_angle=min_angle)
+        s = cpx.scale(acquisition3d.source_fields_3d(acq, grid), SRC_SCALE3)
+        wv, _ = born3d.born_series_solve_3d(vel, s, F3, grid, pml,
+                                            iter_cap=CG3_CAP)
+        rec = fwi3d.sample_receivers_3d(wv, jnp.asarray(acq.rx_idx))
+        return fwi3d.build_fwi_data_3d(acq, rec, F3, grid)._replace(src=s)
+
+    data, full = dataset(MIN_ANGLE3), dataset(0.0)
+    out.update(f3_rec=cpx.to_numpy(data.rec_obs),
+               f3_rec_full=cpx.to_numpy(full.rec_obs))
+    lossy = data._replace(attenuation=jnp.asarray(alpha))
+    vobj = jnp.full(grid.shape, OBJ3_C, jnp.float32)
+    loss, grad, _, _ = fwi3d.objective_pieces_3d(
+        vobj, 1.0 / vobj, lossy, grid, pml, CG3_CAP)
+    vel0 = jnp.full(grid.shape, C3, jnp.float32)
+    out.update(f3_obj_loss=loss, f3_obj_grad=grad)
+    scat = fwi3d.scattered_data_3d(data, grid, c_ref=C3, pml=pml)
+    out.update(f3_scat_rec=cpx.to_numpy(scat.rec_obs),
+               f3_scat_ref=cpx.to_numpy(scat.rec_ref))
+    base = dict(clip_velocity=CG3_CLIP)
+    bb = FWIConfig(num_iterations=3, step_size=StepSizeFormula.BB,
+                   reject_increase=1.5, **base)
+    for name, d, fwi, kw in (
+            ("cbs", data, FWIConfig(**base), {}),
+            ("gmres", data, FWIConfig(**base),
+             dict(solver3d="gmres", warm_start=False)),
+            ("warm", data, FWIConfig(**base),
+             dict(solver3d="gmres", warm_start=True)),
+            ("enc", full, FWIConfig(**base),
+             dict(encode=ENC3_M, encode_seed=ENC3_SEED)),
+            ("bb", data, bb, dict(solver3d="gmres", warm_start=True))):
+        v, m = fwi3d.nonlinear_cg_3d(
+            vel0, d, grid, fwi, num_iterations=fwi.num_iterations
+            if name == "bb" else 2, pml=pml, iter_cap=CG3_CAP,
+            gmres_tol=CG3_TOL, **kw)
+        out.update({f"f3_{name}_loss": m.loss, f"f3_{name}_step": m.step_size,
+                    f"f3_{name}_velocity": v})
+
+    pos = acquisition3d.cylinder_positions(**TD3_POS)
+    td = timedomain3d.synthesize_time_domain_dataset_3d(
+        vel, grid, pos, pml=pml, seed=TD3_SEED, **TD3_BAND)
+    _, datasets = timedomain3d.timedomain_to_fwi_data_3d(
+        td, TD3_FREQS, grid, min_angle=MIN_ANGLE3)
+    res = runner3d.invert_dataset_3d(
+        datasets, grid, FWIConfig(),
+        continuation=ContinuationConfig(frequencies=TD3_FREQS,
+                                        iterations_per_frequency=TD3_ITERS),
+        pml=pml, solver3d="cbs", iter_cap=TD3_CAP)
+    out.update(td3_traces=td.traces, td3_loss=res.metrics["loss"],
+               td3_velocity=res.velocity)
+    np.savez_compressed(OUT_3D, **{k: np.asarray(v) for k, v in out.items()})
+    print(f"wrote {OUT_3D}: {len(out)} arrays")
+
+
 if __name__ == "__main__":
-    main_solvers() if sys.argv[1:] == ["solvers"] else main()
+    commands = {"solvers": main_solvers, "3d": main_3d}
+    commands[sys.argv[1]]() if sys.argv[1:] else main()

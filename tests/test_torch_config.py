@@ -8,11 +8,24 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from waveforminversionust_tpu import config as jcfg
 from waveforminversionust_tpu_torch import config as tcfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small tensor operations,
+    which extra threads only slow when several test workers share the
+    machine (the solver files under four workers: 259 s with the default
+    threads, 52 s with one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _norm(v):
@@ -46,14 +59,17 @@ def test_port_import_leaves_jax_out():
     """Every module of the port, and chip_smoke.py, import without JAX,
     without optax (the port keeps its own L-BFGS) and without the JAX
     package; the modules of the differentiable solve and of the L-BFGS,
-    Gauss-Newton, resolution and joint multi-frequency paths by name."""
+    Gauss-Newton, resolution and joint multi-frequency paths and of the
+    volumetric path, and interop, by name."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import waveforminversionust_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('ops.solve', 'fwi.lbfgs', 'fwi.newton', 'fwi.resolution',\n"
-        "          'fwi.multifreq', 'fwi.runner'):\n"
+        "          'fwi.multifreq', 'fwi.runner', 'models.grid3d',\n"
+        "          'models.acquisition3d', 'ops.born3d', 'fwi.fwi3d',\n"
+        "          'fwi.runner3d', 'data.timedomain3d', 'interop'):\n"
         "    importlib.import_module('waveforminversionust_tpu_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -29,6 +29,18 @@ from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
 F = 350e3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small tensor operations,
+    which extra threads only slow when several test workers share the
+    machine (the solver files under four workers: 259 s with the default
+    threads, 52 s with one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _planes(extent=12e-3, device="cpu"):
     grid = Grid2D.centered(extent, 0.8e-3)
     vel = smooth_blob_phantom(grid, radius=extent / 3, dc=60)
@@ -695,3 +707,54 @@ def test_frequency_sweep_on_card(cuda):
         u, _ = tsolve.solve_helmholtz(vel, src[None], f, grid, solver)
         torch.testing.assert_close(fields[i], u[0], rtol=0,
                                    atol=2e-5 * float(u.abs().max()))
+
+
+# -- the volumetric path on a card: cuFFT and dense DFT products, no kernel --
+
+@pytest.mark.cuda
+def test_3d_entry_points_default_to_the_card(cuda):
+    """With no device named, the 3D sources, datasets and the broadband
+    synthesis run on the card; the inversion runs where its datasets live;
+    no kernel wrapper launches."""
+    from waveforminversionust_tpu_torch.data import timedomain3d
+    from waveforminversionust_tpu_torch.fwi import fwi3d, runner3d
+    from waveforminversionust_tpu_torch.models import acquisition3d
+    from waveforminversionust_tpu_torch.models.grid3d import Grid3D
+
+    grid = Grid3D.centered(6e-3, 1.5e-3)                       # 9^3
+    pos = acquisition3d.cylinder_positions(1, 4, 4.5e-3, 0.0)
+    acq = acquisition3d.build_acquisition3d(grid, pos, min_angle=0.5)
+    assert acquisition3d.source_fields_3d(acq, grid).is_cuda
+    data = fwi3d.build_fwi_data_3d(
+        acq, np.ones(acq.rx_idx.shape[:2], np.complex64), 200e3, grid)
+    assert data.src.is_cuda and data.rec_obs.is_cuda and data.rx_idx.is_cuda
+    pml = PMLConfig(a0=20.0, l_pml=3e-3)
+    reset_kernel_launch_counts()
+    td = timedomain3d.synthesize_time_domain_dataset_3d(
+        np.full(grid.shape, 1510.0, np.float32), grid, pos, f_low=0.2e6,
+        f_high=0.25e6, df=0.05e6, pml=pml)
+    _, datas = timedomain3d.timedomain_to_fwi_data_3d(td, [0.2e6], grid)
+    assert datas[0].src.is_cuda
+    res = runner3d.invert_dataset_3d(datas, grid, num_iterations=1, pml=pml,
+                                     iter_cap=50)
+    torch.cuda.synchronize()
+    assert np.all(np.isfinite(res.velocity))
+    assert kernel_launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_born3d_dft_route_on_card(cuda):
+    """On the card the dft route's transform is cuFFT's: rel < 1e-5 at
+    "highest" (FP32 products), < 1e-3 at "high" (TF32 tensor cores; that
+    it differs from FP32 shows the mode reached the products), forward and
+    inverse, at the bench's 64^3 width; TF32 is off again afterwards."""
+    from waveforminversionust_tpu_torch.ops import born3d
+
+    x = _fields(21, (4, 64, 64, 64), cuda)
+    axes = (-3, -2, -1)
+    for inverse, ref in ((False, torch.fft.fftn(x, dim=axes)),
+                         (True, torch.fft.ifftn(x, dim=axes))):
+        assert _rel(born3d._dft3(x, inverse), ref) < 1e-5
+        high = _rel(born3d._dft3(x, inverse, precision="high"), ref)
+        assert 1e-6 < high < 1e-3, high
+    assert torch.backends.cuda.matmul.allow_tf32 is False

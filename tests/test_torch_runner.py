@@ -62,6 +62,18 @@ ACQ = dict(num_elements=32, radius=18e-3, num_excluded_each_side=5)
 PML = dict(l_pml=4e-3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small tensor operations,
+    which extra threads only slow when several test workers share the
+    machine (the solver files under four workers: 259 s with the default
+    threads, 52 s with one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def recordings():
     """(port grid, {frequency: RingDataset}) with receive sensitivities."""
@@ -423,19 +435,8 @@ def small_recordings():
 def test_iterative_solvers_run_every_method(small_recordings, method,
                                             solver_method):
     """invert_dataset runs GMRES and Born under the methods the JAX
-    package runs them with: 2 iterations, finite and decreasing losses.
-    One intra-op thread: GMRES's host loop is thousands of tiny
-    operations, which extra threads only slow when several test workers
-    share the machine."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        _run_every_method(small_recordings, method, solver_method)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _run_every_method(small_recordings, method, solver_method):
+    package runs them with: 2 iterations, finite and decreasing losses
+    (on the module's one intra-op thread)."""
     grid, acq, recs = small_recordings
     data = recs if method == "joint-multifreq" else recs[300e3]
     res = runner.invert_dataset(
@@ -451,14 +452,16 @@ def _run_every_method(small_recordings, method, solver_method):
 
 # -- C6: signatures shared with the reference -------------------------------
 
-MODULES = ["models.acquisition", "models.phantom",
-           "data.synthesize", "data.qc", "data.matio", "data.timedomain",
+MODULES = ["models.acquisition", "models.phantom", "models.grid3d",
+           "models.acquisition3d", "data.synthesize", "data.qc", "data.matio",
+           "data.timedomain", "data.timedomain3d",
            "ops.stencil", "ops.apply", "ops.banded", "ops.twisted",
            "ops.cyclic", "ops.batched_inv", "ops.krylov",
-           "ops.preconditioner", "ops.born", "ops.solve", "fwi.objective",
-           "fwi.optimizers", "fwi.regularization", "fwi.calibrate",
-           "fwi.runner", "fwi.lbfgs", "fwi.newton", "fwi.resolution",
-           "fwi.multifreq", "utils.checkpoint"]
+           "ops.preconditioner", "ops.born", "ops.born3d", "ops.solve",
+           "fwi.objective", "fwi.optimizers", "fwi.regularization",
+           "fwi.calibrate", "fwi.runner", "fwi.lbfgs", "fwi.newton",
+           "fwi.resolution", "fwi.multifreq", "fwi.fwi3d", "fwi.runner3d",
+           "utils.checkpoint"]
 # Parameters the port adds, beside the entry points' ``device=``, and why.
 ALLOWED = {
     ("ops.batched_inv", "batched_inv"): {
@@ -468,27 +471,46 @@ ALLOWED = {
 SIMPLE = (bool, int, float, str, tuple, type(None))
 
 
-@pytest.mark.parametrize("module", MODULES)
-def test_signatures_match_reference(module):
-    """Every public function the port has in common with the JAX package
-    takes the reference's parameters in the reference's order, with the
-    same plain defaults; the port may add ``device`` and what ALLOWED
-    lists. Functions of the JAX package the port does not have yet are
-    not compared (they are queued in ROADMAP.md A). A twin wrapped in
-    ``jax.jit`` is compared through the function it wraps."""
-    port = importlib.import_module(f"waveforminversionust_tpu_torch.{module}")
-    ref = importlib.import_module(f"waveforminversionust_tpu.{module}")
-    compared = 0
+def _shared(port, ref):
+    """(name, port function, reference function) for every public function
+    of the port module and every public method or classmethod of its
+    public classes (``Grid3D.centered``) that the reference also has."""
     for name, fn in vars(port).items():
+        if name.startswith("_") or getattr(fn, "__module__", None) != \
+                port.__name__:
+            continue
+        if inspect.isclass(fn):
+            twin_cls = getattr(ref, name, None)
+            for meth, f in vars(fn).items():
+                f = getattr(f, "__func__", f)
+                twin = getattr(twin_cls, meth, None)
+                twin = getattr(twin, "__func__", twin)
+                if (not meth.startswith("_") and inspect.isfunction(f)
+                        and inspect.isfunction(twin)):
+                    yield f"{name}.{meth}", f, twin
+            continue
         # The port carries complex64 where the reference has only its
         # split (re, im) form, named ``*_cpx`` (ops/cyclic.py).
         twin = getattr(ref, name, getattr(ref, f"{name}_cpx", None))
         if twin is not None and not inspect.isfunction(twin):
             twin = inspect.unwrap(twin)
-        if (name.startswith("_") or not inspect.isfunction(fn)
-                or fn.__module__ != port.__name__
-                or not inspect.isfunction(twin)):
-            continue
+        if inspect.isfunction(fn) and inspect.isfunction(twin):
+            yield name, fn, twin
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_signatures_match_reference(module):
+    """Every public function the port has in common with the JAX package,
+    and every public method of its classes, takes the reference's
+    parameters in the reference's order, with the same plain defaults; the
+    port may add ``device`` and what ALLOWED lists. Functions of the JAX
+    package the port does not have yet are not compared (they are queued
+    in ROADMAP.md A). A twin wrapped in ``jax.jit`` is compared through the
+    function it wraps."""
+    port = importlib.import_module(f"waveforminversionust_tpu_torch.{module}")
+    ref = importlib.import_module(f"waveforminversionust_tpu.{module}")
+    compared = 0
+    for name, fn, twin in _shared(port, ref):
         mine = inspect.signature(fn).parameters
         theirs = inspect.signature(twin).parameters
         extra = set(ALLOWED.get((module, name), {})) | {"device"}

@@ -7,6 +7,9 @@ runs by a direct factor, by preconditioned GMRES (every matvec the stencil
 kernel) or by the convergent Born series, and is differentiable by
 ``torch.autograd`` under each. The broadband (time-domain) acquisition
 chain synthesizes and extracts comb data for multi-frequency inversion.
+The volumetric path (a 3D grid and cylinder or bowl arrays, the 3D
+convergent Born solve by cuFFT or dense DFT products, 3D nonlinear CG, its
+continuation driver and the 3D broadband chain) runs no kernel of its own.
 The entry points run on the card unless the caller passes
 ``device="cpu"``.
 
@@ -30,9 +33,15 @@ from .data.timedomain import (TimeDomainDataset,  # noqa: E402
                               frequency_sweep, simulate_time_domain,
                               synthesize_time_domain_dataset,
                               timedomain_to_ring_datasets)
+from .data.timedomain3d import (TimeDomainDataset3D,  # noqa: E402
+                                direct_arrival_gate_3d,
+                                synthesize_time_domain_dataset_3d,
+                                timedomain_to_fwi_data_3d)
 from .device import default_device  # noqa: E402
 from .fwi.calibrate import (CalibrationResult,  # noqa: E402
                             background_misfit_fn, calibrate_background_speed)
+from .fwi.fwi3d import (FWIData3D, build_fwi_data_3d,  # noqa: E402
+                        nonlinear_cg_3d, scattered_data_3d)
 from .fwi.lbfgs import run_lbfgs  # noqa: E402
 from .fwi.multifreq import (MultiFreqData,  # noqa: E402
                             nonlinear_cg_multifreq, stack_frequencies)
@@ -42,10 +51,17 @@ from .fwi.objective import FWIData, build_fwi_data  # noqa: E402
 from .fwi.optimizers import CGResult, nonlinear_cg  # noqa: E402
 from .fwi.runner import (default_inversion_grid, invert_dataset,  # noqa: E402
                          make_logging_callback, reconstruction_rmse)
+from .fwi.runner3d import (InversionResult3D, invert_dataset_3d,  # noqa: E402
+                           reconstruction_rmse_3d)
 from .models.acquisition import (RingAcquisition,  # noqa: E402
                                  build_ring_acquisition)
+from .models.acquisition3d import (Acquisition3D,  # noqa: E402
+                                   build_acquisition3d, cylinder_positions,
+                                   hemisphere_positions)
 from .models.grid import Grid2D  # noqa: E402
+from .models.grid3d import Grid3D  # noqa: E402
 from .ops import kernel_launch_counts, reset_kernel_launch_counts  # noqa: E402
+from .ops.born3d import born_gmres_solve_3d, born_series_solve_3d  # noqa: E402
 from .ops.krylov import KrylovResult, gmres  # noqa: E402
 from .ops.solve import (HelmholtzOperator, build_operator,  # noqa: E402
                         helmholtz_operator_solve, make_helmholtz_operator,

@@ -146,7 +146,8 @@ def _validate_watchdog(fwi: FWIConfig):
         raise ValueError(
             f"reject_increase must be > 1 (a loss-RATIO threshold); "
             f"{fwi.reject_increase} would re-trigger forever after the "
-            f"first revert and freeze the inversion at the initial iterate")
+            f"first revert (loss == baseline at the restored model) and "
+            f"freeze the inversion at the initial iterate")
 
 
 class _Carry(NamedTuple):

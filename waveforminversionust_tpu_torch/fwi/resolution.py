@@ -6,7 +6,8 @@ a few solves each through the Frechet pair of :mod:`.newton`.
 Both draw Rademacher probes exactly as the reference's
 ``jax.random.rademacher`` does (threefry2x32 in JAX's partitionable
 counter mode, reproduced bit for bit in numpy below), so the port gives the
-reference's estimates for the same seed.
+reference's estimates for the same seed. The 3D CG's source-encoding
+codes come from the same functions, with ``fold_in`` (:mod:`.fwi3d`).
 """
 
 from __future__ import annotations
@@ -53,6 +54,14 @@ def _split(key, num: int):
     b1, b2 = _threefry2x32(*key, np.zeros(num, np.uint32),
                            np.arange(num, dtype=np.uint32))
     return list(zip(b1, b2))
+
+
+def _fold_in(key, data: int):
+    """jax.random.fold_in(key, data): the hash of the counter pair (0,
+    data) under ``key``, for 0 <= data < 2**32."""
+    b1, b2 = _threefry2x32(*key, np.zeros(1, np.uint32),
+                           np.array([data], np.uint32))
+    return b1[0], b2[0]
 
 
 def _rademacher(key, shape) -> np.ndarray:

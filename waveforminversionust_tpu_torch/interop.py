@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .data.synthesize import RingDataset
+from .fwi.fwi3d import FWIData3D
 from .ops.banded import BandedFactor
 from .ops.cyclic import CRFactor, CRLevel
 from .ops.twisted import TwistedFactor
@@ -115,3 +116,27 @@ def inversion_state(state: dict) -> dict:
         out["metrics"] = {k: t(v, np.float32)
                           for k, v in state["metrics"].items()}
     return out
+
+
+def velocity_3d(vel: np.ndarray, device=None) -> torch.Tensor:
+    """An (nz, ny, nx) float32 tensor from a speed volume of the JAX
+    package (numpy)."""
+    return torch.from_numpy(np.array(vel, dtype=np.float32)).to(device)
+
+
+def fwi_data_3d(src, rec_obs, rx_idx: np.ndarray, f, attenuation=None,
+                rec_ref=None, device=None) -> FWIData3D:
+    """The port's FWIData3D from the fields of the JAX package's one:
+    ``src``, ``rec_obs`` and ``rec_ref`` each the (re, im) pair of a
+    ``Cpx`` as numpy planes (``rec_ref`` None outside scattered-field
+    mode), ``rx_idx`` (ntx, n_active, 3), ``f`` its float32 frequency and
+    ``attenuation`` an optional (nz, ny, nx) alpha map."""
+    return FWIData3D(
+        src=complex_tensor(*src, device=device),
+        rec_obs=complex_tensor(*rec_obs, device=device),
+        rx_idx=torch.from_numpy(np.array(rx_idx, dtype=np.int64)).to(device),
+        f=float(np.float32(f)),
+        attenuation=(None if attenuation is None
+                     else velocity_3d(attenuation, device)),
+        rec_ref=None if rec_ref is None else complex_tensor(*rec_ref,
+                                                            device=device))
