@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py            # the full check, ~4 minutes on an H100
+    python3 chip_smoke.py            # the full check, ~5 minutes on an H100
     python3 chip_smoke.py --phases kernels,data,profile   # a subset
 
 Phases (any failure makes the exit code non-zero):
@@ -95,7 +95,32 @@ Phases (any failure makes the exit code non-zero):
      and 400 kHz): synthesis seconds, extraction per line (rel < 1e-4),
      s/iter a stage, losses falling in each stage, RMSE end < start, no
      kernel launched;
- 16. profile (only when asked for): torch.profiler over 2 iterations of each
+ 16. traveltime (run after broadband): the JAX CLI's broadband
+     --traveltime-init on the broadband traces: the direct-arrival gate,
+     traveltime_init straight and bent (3 outer passes) on 301^2 with the
+     +-31-element exclusion: pick and tomogram seconds, the latter split
+     into eikonal batches, ray traces and PCG solves, Jacobi sweeps and
+     iterations a source, ms a sweep beside its byte bound, PCG residuals,
+     peak memory, RMSE; finite tomograms inside 1300-1800 m/s whose picks'
+     residual is below the homogeneous model's, no kernel launched; a
+     homogeneous eikonal field within 1.5 cells of r * s at
+     tests/test_eikonal.py's shape (the ring's 256 recorded); then the
+     continuation from the straight tomogram (5 CG iterations at each of
+     150, 250 and 350 kHz, refactor_every=2): K1, K2 and K3 launched, each
+     stage's losses falling, RMSE below the tomogram's;
+ 17. traveltime3d: the JAX CLI's broadband3d --traveltime-init at its
+     defaults on the broadband3d traces, straight and bent, the same
+     numbers and holds (clip c +- 2 dv), no kernel launched;
+ 18. methods3d: at fwi3d's shapes, the gradient of fwi_loss_3d against
+     central differences (lossless and lossy, both fields), then
+     invert_dataset_3d "lbfgs" (5 iterations), "gn" (2 of 6 inner),
+     "alpha" and "joint" (3 each, on data with a Gaussian absorber), and
+     calibrate_background_speed_3d (9 x 2): s/iter, solves and their
+     matvecs, peak memory, RMSE, c0; losses finite and falling (GN
+     monotone), RMSE falling (the absorber recovered under "alpha"), c0 of
+     a water shot within one final-level step of 1500 m/s, no kernel
+     launched;
+ 19. profile (only when asked for): torch.profiler over 2 iterations of each
      engine, a two-cycle GMRES solve (one- and two-level) and a Born
      solve: device time by kernel name and the idle share.
 
@@ -174,6 +199,7 @@ C64 = 8      # bytes of a complex64
 CMAC = 8     # real FP32 operations of a complex multiply-add
 SMS = 132    # streaming multiprocessors of an H100 SXM
 C3D = 1500.0  # background speed of the 3D phases [m/s]
+C_REF_TT = 1480.0  # the 2D travel-time start's c_ref (the CLI's --c-init)
 
 
 def log(*a):
@@ -308,6 +334,7 @@ class Smoke:
         self.bad: list[str] = []
         self.slices: dict[str, dict] = {}
         self.launches = dict.fromkeys(KERNELS, 0)
+        self.combs: dict[str, object] = {}  # broadband traces, 2D and 3D
 
     def phase(self, name, fn):
         log(f"== phase {name}")
@@ -1561,6 +1588,24 @@ class Smoke:
             f"operator over {self.n_tx} x {grid.ny}^2: {fft_ms:.3f} ms")
         self.slices["born"].update(matvecs=matvecs, fft_pair_ms=fft_ms)
 
+    def comb_2d(self):
+        """The broadband traces of the JAX CLI's workflow (cli.py:280-297)
+        with the main path's 256-element ring snapped to the 301^2 grid:
+        the breast phantom at 401^2 / 0.6 mm, the 150-350 kHz comb in 25 kHz
+        steps, seed 0; made once and kept for the traveltime phase."""
+        if "2d" not in self.combs:
+            from waveforminversionust_tpu_torch.data import timedomain
+            from waveforminversionust_tpu_torch.models.acquisition import (
+                ring_positions, snap_to_grid)
+            from waveforminversionust_tpu_torch.models.phantom import breast_phantom
+            coarse, fine, acq = self.grid, data_grid(), self.acq_config
+            xi, yi = snap_to_grid(coarse, *ring_positions(acq.num_elements,
+                                                          acq.radius))
+            self.combs["2d"] = timedomain.synthesize_time_domain_dataset(
+                breast_phantom(fine), fine, acq, f_low=150e3, f_high=350e3,
+                df=25e3, seed=0, x_elem=coarse.x[xi], y_elem=coarse.y[yi])
+        return self.combs["2d"]
+
     def broadband(self):
         """The JAX CLI's broadband workflow (cli.py:264-330) through the
         port's functions, with the main path's 256-element ring: traces over
@@ -1573,10 +1618,7 @@ class Smoke:
                                                     FWIConfig, invert_dataset)
         from waveforminversionust_tpu_torch.data import timedomain
         from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
-        from waveforminversionust_tpu_torch.models.acquisition import (
-            ring_positions, snap_to_grid)
         from waveforminversionust_tpu_torch.models.grid import Grid2D
-        from waveforminversionust_tpu_torch.models.phantom import breast_phantom
         from waveforminversionust_tpu_torch.ops import (kernel_factor,
                                                         kernel_launch_counts,
                                                         reset_kernel_launch_counts)
@@ -1584,9 +1626,6 @@ class Smoke:
 
         coarse, fine = self.grid, data_grid()
         acq = self.acq_config
-        xi, yi = snap_to_grid(coarse, *ring_positions(acq.num_elements,
-                                                      acq.radius))
-        vel = breast_phantom(fine)
         per = {}
         for g in (fine, coarse):
             reset_kernel_launch_counts()
@@ -1600,9 +1639,7 @@ class Smoke:
         reset_kernel_launch_counts()
         t0 = time.perf_counter()
         with self.recorded(timedomain, "_sweep_record", comb, lambda r: r):
-            td = timedomain.synthesize_time_domain_dataset(
-                vel, fine, acq, f_low=150e3, f_high=350e3, df=25e3, seed=0,
-                x_elem=coarse.x[xi], y_elem=coarse.y[yi])
+            td = self.comb_2d()
         torch.cuda.synchronize()
         synth_s = time.perf_counter() - t0
         syn_counts = kernel_launch_counts()
@@ -1943,6 +1980,34 @@ class Smoke:
         log(f" one forward solve at 128^3 x {src.shape[0]}: {res}")
         return res
 
+    def setup_3d(self):
+        """The JAX CLI's broadband3d defaults (cli.py:344-356, 635-678):
+        65^3 / 0.75 mm, 3 rings x 16 elements (radius 18 mm over 12 mm),
+        PMLConfig(a0=20, l_pml=9 mm), a 90 m/s Gaussian blob on C3D off
+        centre. Returns (grid, positions, pml, velocity (numpy), dv)."""
+        from waveforminversionust_tpu_torch.config import PMLConfig
+        from waveforminversionust_tpu_torch.models.acquisition3d import cylinder_positions
+        from waveforminversionust_tpu_torch.models.grid3d import Grid3D
+
+        dv, radius = 90.0, 18e-3
+        grid = Grid3D.centered(24e-3, 0.75e-3)
+        Z, Y, X = grid.meshgrid()
+        r2 = (X - 0.15 * radius) ** 2 + Y ** 2 + Z ** 2
+        vel = (C3D + dv * np.exp(-r2 / (2 * (8e-3 / 2) ** 2))).astype(np.float32)
+        return (grid, cylinder_positions(3, 16, radius, 12e-3),
+                PMLConfig(a0=20.0, l_pml=9e-3), vel, dv)
+
+    def comb_3d(self):
+        """setup_3d's traces over the 150-400 kHz comb in 25 kHz steps
+        (seed 0); made once and kept for the traveltime3d phase."""
+        if "3d" not in self.combs:
+            from waveforminversionust_tpu_torch.data import timedomain3d
+            grid, pos, pml, vel, _ = self.setup_3d()
+            self.combs["3d"] = timedomain3d.synthesize_time_domain_dataset_3d(
+                vel, grid, pos, f_low=0.15e6, f_high=0.40e6, df=0.025e6,
+                pml=pml, seed=0)
+        return self.combs["3d"]
+
     def broadband3d(self):
         """The JAX CLI's broadband3d workflow at its defaults (cli.py:
         333-400, 635-678) without the travel-time start: 65^3 / 0.75 mm, 3
@@ -1954,23 +2019,16 @@ class Smoke:
         (GMRES, cap 400, clip +-2.5 x 90 m/s)."""
         import torch
         from waveforminversionust_tpu_torch.config import (ContinuationConfig,
-                                                           FWIConfig, PMLConfig)
+                                                           FWIConfig)
         from waveforminversionust_tpu_torch.data import timedomain, timedomain3d
         from waveforminversionust_tpu_torch.fwi import fwi3d
         from waveforminversionust_tpu_torch.fwi.runner3d import invert_dataset_3d
         from waveforminversionust_tpu_torch.models.acquisition3d import (
-            build_acquisition3d, cylinder_positions, source_fields_3d)
-        from waveforminversionust_tpu_torch.models.grid3d import Grid3D
+            build_acquisition3d, source_fields_3d)
         from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
                                                         reset_kernel_launch_counts)
 
-        dv, radius = 90.0, 18e-3
-        grid = Grid3D.centered(24e-3, 0.75e-3)
-        pos = cylinder_positions(3, 16, radius, 12e-3)
-        pml = PMLConfig(a0=20.0, l_pml=9e-3)
-        Z, Y, X = grid.meshgrid()
-        r2 = (X - 0.15 * radius) ** 2 + Y ** 2 + Z ** 2
-        vel = (C3D + dv * np.exp(-r2 / (2 * (8e-3 / 2) ** 2))).astype(np.float32)
+        grid, pos, pml, vel, dv = self.setup_3d()
         acq = build_acquisition3d(grid, pos, min_angle=0.7)
         self.slices["broadband3d"] = dict(spectral_ab=self.spectral_ab(
             torch.as_tensor(vel, device=self.device),
@@ -1984,9 +2042,7 @@ class Smoke:
         with self.recorded(timedomain3d, "_sweep_record_3d", comb, lambda r: r), \
                 self.recorded(fwi3d, "born_gmres_solve_3d", line_mv,
                               lambda r: r[1]):
-            td = timedomain3d.synthesize_time_domain_dataset_3d(
-                vel, grid, pos, f_low=0.15e6, f_high=0.40e6, df=0.025e6,
-                pml=pml, seed=0)
+            td = self.comb_3d()
         torch.cuda.synchronize()
         synth_s = time.perf_counter() - t0
         syn_counts = kernel_launch_counts()
@@ -2052,7 +2108,436 @@ class Smoke:
                    f"a kernel was launched on the 3D path: {syn_counts}, "
                    f"{counts}")
 
-    # -- phase 16 -------------------------------------------------------
+    # -- phases 16-18: the travel-time starts and the 3D methods --------
+    @contextlib.contextmanager
+    def spans(self, out, *targets):
+        """Patch each (module, name, key) of ``targets`` so that every call
+        runs between two synchronizes and adds its seconds to out[key]."""
+        import torch
+        with contextlib.ExitStack() as stack:
+            for module, name, key in targets:
+                real = getattr(module, name)
+
+                def wrapper(*a, _real=real, _key=key, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = _real(*a, **k)
+                    torch.cuda.synchronize()
+                    out[_key] = out.get(_key, 0.0) + time.perf_counter() - t0
+                    return res
+
+                stack.enter_context(mock.patch.object(module, name, wrapper))
+            yield
+
+    def tomogram(self, run, pick_module, update, n_vox, c_ref, clip, rmse,
+                 times):
+        """One travel-time start through its entry point ``run`` (which
+        returns (velocity, t_obs, tx, rx)): seconds split into the picks,
+        the eikonal batches, the ray traces and the PCG solves, the Jacobi
+        sweeps (``update`` is the (module, name) of the local solver) and
+        each source's iterations, ms a sweep beside its byte bound (T and
+        s read, T written), the PCG residuals, peak memory, RMSE
+        (``rmse(velocity)``) and the picks' residual under ``times(slowness,
+        tx, rx)`` against the homogeneous ``c_ref`` model's. Holds finite
+        values inside ``clip``, the residual below the homogeneous one and
+        no kernel launched."""
+        import torch
+        from waveforminversionust_tpu_torch.fwi import eikonal, traveltime
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+
+        secs, iters, sweeps, relres = {}, [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        with self.spans(secs, (pick_module, "pick_arrival_times", "pick"),
+                        (eikonal, "_solve", "eikonal"),
+                        (eikonal, "_trace", "trace"),
+                        (traveltime, "_normal_eq_solve", "pcg")), \
+                self.recorded(eikonal, "_solve", iters,
+                              lambda r: r[1].cpu().numpy()), \
+                self.recorded(*update, sweeps, lambda r: None), \
+                self.recorded(traveltime, "_normal_eq_solve", relres,
+                              lambda r: float(r[1])):
+            vel, t_obs, tx, rx = run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        slow = 1.0 / vel
+        resid = float(np.linalg.norm(times(slow, tx, rx).cpu().numpy() - t_obs))
+        resid0 = float(np.linalg.norm(
+            times(np.full_like(slow, 1.0 / c_ref), tx, rx).cpu().numpy()
+            - t_obs))
+        n_sweeps = len(sweeps)
+        its = np.concatenate(iters) if iters else np.zeros(0, np.int32)
+        n_src = its.size // max(1, len(iters))
+        ms_sweep = secs.get("eikonal", 0.0) * 1e3 / max(1, n_sweeps)
+        sweep_bound = (2 * n_src + 1) * n_vox * 4 / PEAK_BYTES * 1e3
+        out = dict(
+            pick_s=secs["pick"], tomogram_s=total - secs["pick"],
+            eikonal_s=secs.get("eikonal", 0.0),
+            trace_s=secs.get("trace", 0.0), pcg_s=secs["pcg"],
+            eikonal_batches=len(iters), sources=n_src, jacobi_sweeps=n_sweeps,
+            iterations_max=int(its.max()) if its.size else 0,
+            iterations_median=float(np.median(its)) if its.size else 0.0,
+            ms_per_sweep=ms_sweep, sweep_bound_ms=sweep_bound,
+            pcg_relres=relres, pairs=int(len(t_obs)), peak_memory_mib=peak,
+            rmse=rmse(vel), residual_s=resid, residual_homogeneous_s=resid0,
+            launches=counts)
+        log(f"  picks {out['pick_s']:.3f} s, tomogram {out['tomogram_s']:.3f} s "
+            f"(eikonal {out['eikonal_s']:.3f} s in {len(iters)} batches of "
+            f"{n_src} sources, {n_sweeps} Jacobi sweeps, iterations a source "
+            f"max {out['iterations_max']} median "
+            f"{out['iterations_median']:.1f}, {ms_sweep:.4f} ms a sweep, "
+            f"bound {sweep_bound:.4f} ms; trace {out['trace_s']:.3f} s; PCG "
+            f"{out['pcg_s']:.3f} s, relres {relres}); {len(t_obs)} pairs; "
+            f"peak {peak:.1f} MiB; rmse {out['rmse']:.4f} m/s; pick residual "
+            f"{resid:.4e} s against {resid0:.4e} s homogeneous; launches "
+            f"{counts}")
+        self.check(np.all(np.isfinite(vel)) and vel.min() >= clip[0]
+                   and vel.max() <= clip[1],
+                   f"tomogram outside {clip}: {vel.min()} .. {vel.max()}")
+        self.check(resid < resid0, f"pick residual {resid} not below the "
+                   f"homogeneous model's {resid0}")
+        self.check(all(n == 0 for n in counts.values()),
+                   f"a kernel was launched by the travel-time start: {counts}")
+        return vel, out
+
+    def traveltime(self):
+        """The JAX CLI's ``broadband --traveltime-init`` (cli.py:302-323) at
+        the main path's ring: the broadband phase's traces (made here when
+        it did not run), the direct-arrival gate at the CLI's defaults
+        (1480 m/s, 3/8/2 us), traveltime_init on 301^2 / 0.8 mm with the
+        +-31-element exclusion, straight and bent (3 outer passes); the
+        homogeneous eikonal fields against r * s; then the continuation from
+        the straight tomogram, 5 CG iterations at each of 150, 250 and 350
+        kHz, with the main path's frozen factor (refactor_every=2), so that
+        K1, K2 and K3 all run."""
+        import torch
+        from waveforminversionust_tpu_torch import (ContinuationConfig,
+                                                    FWIConfig, SolverConfig,
+                                                    invert_dataset)
+        from waveforminversionust_tpu_torch.data import timedomain
+        from waveforminversionust_tpu_torch.fwi import eikonal, traveltime
+        from waveforminversionust_tpu_torch.fwi.runner import reconstruction_rmse
+        from waveforminversionust_tpu_torch.models.acquisition import (
+            ring_positions, snap_to_grid)
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+
+        coarse, acq = self.grid, self.acq_config
+        td = self.comb_2d()
+        gated = timedomain.direct_arrival_gate(td, c_ref=C_REF_TT, pre=3e-6,
+                                               post=8e-6, taper=2e-6)
+        true_grid = Grid2D.from_arrays(td.x, td.y)
+
+        def rmse(v):
+            return reconstruction_rmse(v, coarse, td.c, true_grid)
+
+        out = self.slices["traveltime"] = dict(
+            rmse_homogeneous=rmse(np.full(coarse.shape, C_REF_TT)))
+        n_samples = 2 * max(coarse.shape)
+        clip = (1300.0, 1800.0)
+        tomo = {}
+        for method in ("straight", "bent"):
+            log(f" traveltime_init method={method}:")
+            tomo[method], out[method] = self.tomogram(
+                lambda: traveltime.traveltime_init(
+                    gated, coarse,
+                    num_excluded_each_side=acq.num_excluded_each_side,
+                    c_ref=C_REF_TT, method=method, n_outer=3,
+                    return_times=True),
+                traveltime, (eikonal, "_upwind_update"),
+                coarse.ny * coarse.nx, C_REF_TT, clip, rmse,
+                lambda s, tx, rx: traveltime.straight_ray_times(
+                    s, tx, rx, coarse, n_samples=n_samples))
+
+        # homogeneous maps against r * s: tests/test_eikonal.py's case (40
+        # mm at 1 mm, one source) held to its bound, 1.5 cells of time (the
+        # first-order scheme's diagonal error); the ring's 256 sources on
+        # the 301^2 grid, whose rays run ~5x as many cells, recorded
+        s0 = np.float32(1.0 / C_REF_TT)
+        xi, yi = snap_to_grid(coarse, *ring_positions(acq.num_elements,
+                                                      acq.radius))
+        cases = (("test_eikonal", Grid2D.centered(40e-3, 1e-3),
+                  np.array([[-30e-3, 5e-3]], np.float32)),
+                 ("ring", coarse, np.stack([coarse.x[xi], coarse.y[yi]], 1)
+                  .astype(np.float32)))
+        for name, g, src in cases:
+            t = eikonal.eikonal_solve_batch(np.full(g.shape, s0), src,
+                                            g).cpu().numpy()
+            X, Y = g.meshgrid()
+            exact = np.hypot(X[None] - src[:, 0, None, None],
+                             Y[None] - src[:, 1, None, None]) * s0
+            err = float(np.abs(t - exact).max())
+            out[f"homogeneous_{name}_max_err_cells"] = err / float(g.dx * s0)
+            log(f" homogeneous eikonal batch, {name} ({len(src)} sources on "
+                f"{g.nx}^2): max |T - r s| {err:.4e} s = "
+                f"{err / (g.dx * s0):.3f} cells of time")
+        self.check(out["homogeneous_test_eikonal_max_err_cells"] < 1.5,
+                   f"homogeneous eikonal {out}")
+
+        freqs, n_stage = (150e3, 250e3, 350e3), 5
+        datasets = timedomain.timedomain_to_ring_datasets(td, freqs,
+                                                          deconvolve=False)
+        ends = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        res = invert_dataset(
+            datasets, grid=coarse, acquisition=acq,
+            solver=SolverConfig(refactor_every=2),
+            fwi=FWIConfig(c_init=C_REF_TT), c_init=tomo["straight"],
+            continuation=ContinuationConfig(frequencies=freqs,
+                                            iterations_per_frequency=n_stage),
+            callback=lambda *a: ends.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        counts = kernel_launch_counts()
+        stage_s = np.diff([t0] + ends)
+        loss = res.metrics["loss"]
+        rmse0, rmse1 = out["straight"]["rmse"], rmse(res.velocity)
+        out["continuation"] = dict(
+            s_per_iter_by_stage=(stage_s / n_stage).tolist(),
+            loss=loss.tolist(), rmse_start=rmse0, rmse_end=rmse1,
+            peak_memory_mib=torch.cuda.max_memory_allocated() / 2**20,
+            launches=counts)
+        log(f" continuation {freqs} from the straight tomogram, {n_stage} "
+            f"iterations each (refactor_every=2): s/iter by stage "
+            f"{(stage_s / n_stage).tolist()}; loss {loss.tolist()}; rmse "
+            f"{rmse0:.4f} -> {rmse1:.4f} m/s; launches {counts}")
+        for k in KERNELS:
+            self.launches[k] += counts[k]
+        n_iter = n_stage * len(freqs)
+        self.check(np.all(np.isfinite(loss)) and all(
+            loss[i + n_stage - 1] < loss[i] for i in range(0, n_iter, n_stage)),
+            f"stage losses not finite and falling: {loss}")
+        self.check(rmse1 < rmse0, f"rmse {rmse1} not below the start {rmse0}")
+        self.check(all(counts[k] > 0 for k in ("factor", "sweep", "stencil")),
+                   f"continuation launches {counts}")
+
+    def traveltime3d(self):
+        """The JAX CLI's ``broadband3d --traveltime-init`` (cli.py:364-378)
+        at its defaults: the broadband3d phase's traces (made here when it
+        did not run), the gate at 1500 m/s (3/8/2 us), traveltime_init_3d
+        on the 65^3 grid with min_angle 0.7 and the clip c +- 2 dv, straight
+        and bent (3 outer passes); RMSE over the volume."""
+        from waveforminversionust_tpu_torch.data import timedomain3d
+        from waveforminversionust_tpu_torch.fwi import eikonal3d, traveltime3d
+
+        grid, _, _, vel_true, dv = self.setup_3d()
+        td = self.comb_3d()
+        gated = timedomain3d.direct_arrival_gate_3d(td, c_ref=C3D, pre=3e-6,
+                                                    post=8e-6, taper=2e-6)
+
+        def rmse(v):
+            return float(np.sqrt(np.mean((v - vel_true) ** 2)))
+
+        clip = (C3D - 2 * dv, C3D + 2 * dv)
+        out = self.slices["traveltime3d"] = dict(
+            rmse_homogeneous=rmse(np.full(grid.shape, C3D)))
+        n_samples = 2 * max(grid.shape)
+        for method in ("straight", "bent"):
+            log(f" traveltime_init_3d method={method}:")
+            _, out[method] = self.tomogram(
+                lambda: traveltime3d.traveltime_init_3d(
+                    gated, grid, min_angle=0.7, c_ref=C3D, method=method,
+                    clip_velocity=clip, return_times=True),
+                traveltime3d, (eikonal3d, "_upwind_update_3d"),
+                grid.nz * grid.ny * grid.nx, C3D, clip, rmse,
+                lambda s, tx, rx: traveltime3d.straight_ray_times_3d(
+                    s, tx, rx, grid, n_samples=n_samples))
+
+    def methods3d(self):
+        """The 3D methods at fwi3d's shapes (bench.py::bench_3d_setup: 64^3
+        / 0.75 mm, 2 x 8 elements, 300 kHz, the 40 m/s blob; GMRES restart
+        8, tol 2e-3, cap 400): the gradient of fwi_loss_3d against central
+        differences along interior-masked random directions, lossless and
+        lossy (tests/test_fwi3d.py:289-372: GMRES tol 1e-5, a frozen
+        shell); invert_dataset_3d with "lbfgs" (5 iterations), "gn" (2
+        outer of 6 inner), and "alpha" (from the true velocity) and "joint"
+        (from 1500 m/s), 3 iterations each, on data with a Gaussian absorber
+        (tests/test_fwi3d.py:380-427 scaled to 64^3); then
+        calibrate_background_speed_3d (9 candidates x 2 levels) on a water
+        shot and on the blob data."""
+        import torch
+        from waveforminversionust_tpu_torch.config import FWIConfig
+        from waveforminversionust_tpu_torch.fwi import calibrate, fwi3d, lbfgs
+        from waveforminversionust_tpu_torch.fwi.runner3d import (
+            invert_dataset_3d, reconstruction_rmse_3d)
+        from waveforminversionust_tpu_torch.ops import (born3d,
+                                                        kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+
+        f = 300e3
+        grid, acq, pml, vel_true, src, half = self._bench3d(64)
+        rx = torch.as_tensor(acq.rx_idx, dtype=torch.long, device=self.device)
+        Z, Y, X = grid.meshgrid()
+        # the absorber of tests/test_fwi3d.py:392-394 (40 Np/m over 3 mm on
+        # a 12 mm half width), widened to this volume's half width
+        alpha_true = torch.as_tensor(
+            (40.0 * np.exp(-(X ** 2 + Y ** 2 + Z ** 2)
+                           / (3e-3 * half / 12e-3) ** 2)).astype(np.float32),
+            device=self.device)
+
+        def dataset(vel, alpha=None):
+            wv, _ = born3d.born_gmres_solve_3d(vel, src, f, grid, pml,
+                                               maxiter=400, tol=2e-3,
+                                               restart=8, attenuation=alpha)
+            return fwi3d.build_fwi_data_3d(
+                acq, fwi3d.sample_receivers_3d(wv, rx), f, grid)._replace(
+                    src=src)
+
+        vel0 = torch.full(grid.shape, C3D, device=self.device)
+        data, lossy = dataset(vel_true), dataset(vel_true, alpha_true)
+        out = self.slices["methods3d"] = {}
+        truth = vel_true.cpu().numpy()
+
+        def rmse(v):
+            return reconstruction_rmse_3d(np.asarray(v), grid, truth,
+                                          radius=0.75 * half)
+
+        # the gradient against central differences
+        reset_kernel_launch_counts()
+        slow = torch.full((vel0.numel(),), 1.0 / C3D, device=self.device)
+        k0 = 2 * np.pi * f / C3D
+        rng = np.random.default_rng(3)
+        mask = np.zeros(grid.shape, np.float32)
+        mask[3:-3, 3:-3, 3:-3] = 1.0
+        grads = {}
+        for name, alpha0 in (("lossless", None),
+                             ("lossy", torch.full(grid.shape, 10.0,
+                                                  device=self.device))):
+            def loss_fn(s, a, _alpha0=alpha0):
+                d = data._replace(attenuation=a)
+                return lbfgs.fwi_loss_3d(s, d, grid, pml, iter_cap=2000,
+                                         use_gmres=True, tol=1e-5,
+                                         restart=16, estimate_sources=False,
+                                         shell_k0=k0)
+
+            s = slow.clone().requires_grad_(True)
+            a = None if alpha0 is None else alpha0.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = loss_fn(s, a)
+            loss.backward()
+            torch.cuda.synchronize()
+            grad_s = time.perf_counter() - t0
+            ds = torch.as_tensor(rng.standard_normal(slow.shape[0])
+                                 .astype(np.float32) * mask.ravel() / C3D,
+                                 device=self.device)
+            with torch.no_grad():
+                eps = 3e-3
+                fd = (float(loss_fn(slow + eps * ds, alpha0))
+                      - float(loss_fn(slow - eps * ds, alpha0))) / (2 * eps)
+                an = float(torch.dot(s.grad, ds))
+                row = dict(loss=float(loss), value_and_grad_s=grad_s,
+                           slowness=dict(analytic=an, fd=fd,
+                                         rel=abs(an - fd) / abs(fd)))
+                if alpha0 is not None:
+                    da = torch.as_tensor(rng.standard_normal(grid.shape)
+                                         .astype(np.float32) * mask * 5.0,
+                                         device=self.device)
+                    eps_a = 1e-1
+                    fd_a = (float(loss_fn(slow, alpha0 + eps_a * da))
+                            - float(loss_fn(slow, alpha0 - eps_a * da))
+                            ) / (2 * eps_a)
+                    an_a = float(torch.sum(a.grad * da))
+                    row["alpha"] = dict(analytic=an_a, fd=fd_a,
+                                        rel=abs(an_a - fd_a) / abs(fd_a))
+            grads[name] = row
+            log(f" fwi_loss_3d gradient, {name}: {row}")
+        out["gradient"] = grads
+        grad_counts = kernel_launch_counts()
+        self.check(all(np.isfinite(r["slowness"]["analytic"])
+                       and r["slowness"]["rel"] < 5e-2 for r in grads.values()),
+                   f"slowness gradient off its central difference: {grads}")
+        # the JAX package's own bound for the weaker alpha sensitivity
+        # (tests/test_fwi3d.py:371)
+        self.check(grads["lossy"]["alpha"]["rel"] < 1e-1,
+                   f"alpha gradient off its central difference: {grads}")
+
+        # the four methods
+        runs = (("lbfgs", data, 5, {}, vel0),
+                ("gn", data, 2, dict(cg_iters=6), vel0),
+                ("alpha", lossy, 3, {}, vel_true),
+                ("joint", lossy, 3, {}, vel0))
+        counts = {"gradient": grad_counts}
+        for method, d, n_it, kw, c_init in runs:
+            solves = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launch_counts()
+            t0 = time.perf_counter()
+            with self.recorded(fwi3d, "born_gmres_solve_3d", solves,
+                               lambda r: r[1]), \
+                    self.recorded(born3d, "born_gmres_solve_3d", solves,
+                                  lambda r: r[1]):
+                res = invert_dataset_3d(
+                    d, grid, FWIConfig(c_init=C3D), method=method,
+                    c_init=c_init, pml=pml, iter_cap=400, solver3d="gmres",
+                    gmres_tol=2e-3, gmres_restart=8, num_iterations=n_it,
+                    **kw)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            counts[method] = kernel_launch_counts()
+            loss = res.metrics["loss"]
+            row = dict(s_per_iter=elapsed / n_it, iterations=n_it,
+                       solves=len(solves), solve_matvecs=solves,
+                       loss=loss.tolist(), rmse_start=rmse(c_init.cpu()),
+                       rmse_end=rmse(res.velocity),
+                       peak_memory_mib=torch.cuda.max_memory_allocated() / 2**20,
+                       launches=counts[method])
+            if method in ("alpha", "joint"):
+                am = res.metrics["attenuation"]
+                c = tuple(n // 2 for n in grid.shape)
+                row.update(alpha_centre=float(am[c]), alpha_max=float(am.max()),
+                           alpha_true_centre=float(alpha_true[c]))
+            out[method] = row
+            log(f" {method}: {row}")
+            self.check(np.all(np.isfinite(loss)) and loss[-1] < loss[0],
+                       f"{method} losses not finite and falling: {loss}")
+            if method == "gn":
+                self.check(np.all(np.diff(loss) <= 0),
+                           f"gn losses not monotone: {loss}")
+            if method == "alpha":
+                self.check(row["alpha_centre"] > 0,
+                           f"no absorber recovered: {row['alpha_centre']}")
+            else:
+                self.check(row["rmse_end"] < row["rmse_start"],
+                           f"{method} rmse {row['rmse_end']} not below "
+                           f"{row['rmse_start']}")
+
+        # background-speed calibration, 9 candidates over 1400-1600 m/s x 2
+        # levels: on a water shot (the homogeneous C3D volume), where c0
+        # must come within the last level's spacing of C3D, and on the blob
+        # data, whose anomaly pulls it up (recorded)
+        step = 2 * (1600.0 - 1400.0) / 8 / 8   # the last level's spacing
+        for name, d in (("water", dataset(vel0)), ("blob", data)):
+            reset_kernel_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cal = calibrate.calibrate_background_speed_3d(d, grid, pml=pml)
+            torch.cuda.synchronize()
+            counts[f"calibrate_{name}"] = kernel_launch_counts()
+            out[f"calibrate_{name}"] = dict(
+                seconds=time.perf_counter() - t0, c0=cal.c0,
+                c_grid_best=cal.c_grid_best, misfits=cal.misfits.tolist(),
+                final_step=step)
+            log(f" calibrate_background_speed_3d on the {name} data: c0 "
+                f"{cal.c0:.4f} m/s (background {C3D}, last spacing {step}), "
+                f"best candidate {cal.c_grid_best}, "
+                f"{out[f'calibrate_{name}']['seconds']:.3f} s")
+        c0 = out["calibrate_water"]["c0"]
+        self.check(abs(c0 - C3D) <= step,
+                   f"calibrated c0 {c0} off the background {C3D}")
+        self.check(all(n == 0 for c in counts.values() for n in c.values()),
+                   f"a kernel was launched on the 3D path: {counts}")
+
+    # -- phase 19 -------------------------------------------------------
     def profile(self):
         """torch.profiler over 2 iterations (one factored, one stale) of
         each engine, and over one two-cycle GMRES forward solve (one- and
@@ -2129,8 +2614,9 @@ def nvidia_smi(query="name,power.limit") -> str:
 
 SLICES = ("slice", "slice_twisted", "slice_cr")
 PATHS = SLICES + ("parity", "intake", "runner", "lbfgs", "gn", "multifreq",
-                  "gmres", "born", "broadband", "profile")
-VOLUMES = ("fwi3d", "broadband3d")  # the 3D phases need no 2D data
+                  "gmres", "born", "broadband", "traveltime", "profile")
+# the 3D phases need no 2D data
+VOLUMES = ("fwi3d", "broadband3d", "traveltime3d", "methods3d")
 
 
 def main(argv=None) -> int:
@@ -2138,11 +2624,12 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,data,slice,slice_twisted,slice_cr,"
                             "parity,intake,runner,lbfgs,gn,multifreq,gmres,"
-                            "born,broadband,fwi3d,broadband3d",
+                            "born,broadband,traveltime,fwi3d,broadband3d,"
+                            "traveltime3d,methods3d",
                     help="comma-separated subset of kernels,data,slice,"
                          "slice_twisted,slice_cr,parity,intake,runner,lbfgs,"
-                         "gn,multifreq,gmres,born,broadband,fwi3d,"
-                         "broadband3d,profile")
+                         "gn,multifreq,gmres,born,broadband,traveltime,"
+                         "fwi3d,broadband3d,traveltime3d,methods3d,profile")
     args = ap.parse_args(argv)
 
     import torch

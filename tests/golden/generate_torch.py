@@ -4,6 +4,8 @@ tests hold their methods and solvers against:
     python tests/golden/generate_torch.py            # torch_methods.npz
     python tests/golden/generate_torch.py solvers    # torch_solvers.npz
     python tests/golden/generate_torch.py 3d         # torch_3d.npz
+    python tests/golden/generate_torch.py traveltime # torch_traveltime.npz
+    python tests/golden/generate_torch.py methods3d  # torch_methods3d.npz
 
 Each of those JAX functions compiles for 5-20 s on one CPU core, which the
 tests cannot afford one by one (each test module keeps one live JAX
@@ -29,6 +31,19 @@ the 3D objective, the scattered-field data and 2-3 iterations of 3D CG
 (the plain series, GMRES cold and warm, encoded, BB with the watchdog) on
 an 8-element ring; the 3D broadband traces of an 8-element cylinder and a
 two-stage invert_dataset_3d over them.
+
+torch_traveltime.npz (tests/test_torch_traveltime.py,
+test_torch_traveltime3d.py): eikonal fields, receiver times and bent rays
+of a Gaussian blob on a 41^2 grid (0.8 mm) and a 15^3 grid (1 mm); the
+straight and bent tomograms of a 12-element ring's (a 12-element
+cylinder's) straight-ray times through it; traveltime_init over synthetic
+traces whose envelopes peak at those times.
+
+torch_methods3d.npz (tests/test_torch_methods3d.py): on main_3d's 15^3 blob
+and ring, the gradient of fwi_loss_3d (lossless, and lossy in both fields)
+at converged solves with a frozen shell, 2 iterations of 3D L-BFGS, one
+Gauss-Newton iteration, one of the attenuation and joint inversions over
+data with a Gaussian absorber, and the 3D background-speed calibration.
 """
 
 import os
@@ -505,6 +520,251 @@ def main_3d():
     print(f"wrote {OUT_3D}: {len(out)} arrays")
 
 
+OUT_TT = os.path.join(os.path.dirname(__file__), "torch_traveltime.npz")
+TT_EXTENT, TT_H = 16e-3, 0.8e-3               # 41^2
+TT3_EXTENT, TT3_H = 7e-3, 1e-3                # 15^3
+TT_C, TT_DV = 1500.0, 60.0                    # the blob's background, peak
+TT_SRC = ((-12e-3, 3e-3), (10e-3, -9e-3), (0.0, 14e-3))
+TT3_SRC = ((-6e-3, 2e-3, 1e-3), (5e-3, -5e-3, -3e-3))
+TT_RING = dict(n=12, radius=14e-3)            # the tomography's ring
+TT_EXCLUDE = 2                                # elements excluded each side
+TT3_POS = dict(n_rings=2, n_per_ring=6, radius=6e-3, z_span=4e-3)
+TT3_MIN_ANGLE = 0.5
+TT_STEPS, TT_SAMPLES = 120, 32                # trace_rays on the 41^2 grid
+TT3_STEPS, TT3_SAMPLES = 60, 16
+TT_DF, TT_NT, TT_SIGMA = 25e3, 256, 0.4e-6    # the synthetic traces
+TT_LAM = 1.0                                  # invert_travel_times' default
+TT_OUTER = 2                                  # bent-ray passes
+
+
+def tt_blob(grid, radius=5e-3):
+    """The travel-time tests' Gaussian blob of TT_DV on TT_C (either
+    package's Grid2D or Grid3D)."""
+    r2 = sum(c ** 2 for c in grid.meshgrid())
+    return (TT_C + TT_DV * np.exp(-r2 / radius ** 2)).astype(np.float32)
+
+
+def tt_ring():
+    ang = 2 * np.pi * np.arange(TT_RING["n"]) / TT_RING["n"]
+    return TT_RING["radius"] * np.stack([np.cos(ang), np.sin(ang)], 1)
+
+
+def tt_pairs(n, exclude):
+    """(tx, rx) element indices of the ring pairs at least ``exclude`` + 1
+    elements apart (the acceptance mask's pairs)."""
+    d = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+    return np.nonzero(np.minimum(d, n - d) > exclude)
+
+
+def tt_traces(t_arr, times):
+    """Complex analytic traces whose envelope peaks at ``t_arr`` on the
+    circular time axis of one comb period: a Gaussian envelope of width
+    TT_SIGMA under a 200 kHz carrier."""
+    period = 1.0 / TT_DF
+    d = np.mod(times - t_arr[..., None] + 0.5 * period, period) - 0.5 * period
+    return (np.exp(-(d / TT_SIGMA) ** 2) * np.exp(2j * np.pi * 2e5 * d)
+            ).astype(np.complex64)
+
+
+def tt_snap(coords, values):
+    """Nearest grid coordinate of each value."""
+    return coords[np.argmin(np.abs(coords[None, :] - values[:, None]), axis=1)]
+
+
+def main_traveltime():
+    from waveforminversionust_tpu.fwi import (eikonal, eikonal3d, traveltime,
+                                              traveltime3d)
+    from waveforminversionust_tpu.models.grid3d import Grid3D
+
+    out = {}
+    grid = Grid2D.centered(TT_EXTENT, TT_H)
+    slow = 1.0 / tt_blob(grid)
+    src = np.asarray(TT_SRC, np.float32)
+    t = eikonal.eikonal_solve_batch(slow, src, grid)
+    rng = np.random.default_rng(5)
+    rx = rng.uniform(-14e-3, 14e-3, (6, 2)).astype(np.float32)
+    si = np.arange(6, dtype=np.int32) % len(src)
+    pts, lengths = eikonal.trace_rays(t, si, src[si], rx, grid,
+                                      n_steps=TT_STEPS, step=0.5 * TT_H,
+                                      n_samples=TT_SAMPLES)
+    out.update(tt_eik=t, tt_eik_rx=rx,
+               tt_eik_times=eikonal.eikonal_receiver_times(t, si, rx, grid),
+               tt_pts=pts, tt_lengths=lengths)
+    # the snapped ring, exact straight-ray times through the blob, and
+    # traces peaking at them
+    pos = tt_ring()
+    pos = np.stack([tt_snap(grid.x, pos[:, 0]), tt_snap(grid.y, pos[:, 1])], 1)
+    ti, ri = tt_pairs(TT_RING["n"], TT_EXCLUDE)
+    t_obs = np.asarray(traveltime.straight_ray_times(slow, pos[ti], pos[ri],
+                                                     grid))
+    for name, fn in (("straight", traveltime.invert_travel_times),
+                     ("bent", traveltime.invert_travel_times_bent)):
+        kw = dict(n_outer=TT_OUTER) if name == "bent" else {}
+        v, r = fn(t_obs, pos[ti], pos[ri], grid, c_ref=TT_C,
+                  lam_smooth=TT_LAM, **kw)
+        out.update({f"tt_{name}": v, f"tt_{name}_relres": r})
+    times = np.arange(TT_NT) / (TT_NT * TT_DF)
+    t_all = np.zeros((TT_RING["n"], TT_RING["n"]))
+    t_all[ti, ri] = t_obs
+    out.update(tt_traces=tt_traces(t_all, times), tt_times=times)
+    td = _tt_dataset(grid, pos, out["tt_traces"], times)
+    for method in ("straight", "bent"):
+        out[f"tt_init_{method}"] = traveltime.traveltime_init(
+            td, grid, num_excluded_each_side=TT_EXCLUDE, c_ref=TT_C,
+            method=method, n_outer=TT_OUTER)
+
+    grid3 = Grid3D.centered(TT3_EXTENT, TT3_H)
+    slow3 = 1.0 / tt_blob(grid3, radius=3e-3)
+    src3 = np.asarray(TT3_SRC, np.float32)
+    t3 = eikonal3d.eikonal_solve_batch_3d(slow3, src3, grid3)
+    rx3 = rng.uniform(-6e-3, 6e-3, (4, 3)).astype(np.float32)
+    si3 = np.arange(4, dtype=np.int32) % len(src3)
+    pts3, lengths3 = eikonal3d.trace_rays_3d(
+        t3, si3, src3[si3], rx3, grid3, n_steps=TT3_STEPS, step=0.5 * TT3_H,
+        n_samples=TT3_SAMPLES)
+    out.update(tt3_eik=t3, tt3_eik_rx=rx3,
+               tt3_eik_times=eikonal3d.eikonal_receiver_times_3d(t3, si3, rx3,
+                                                                 grid3),
+               tt3_pts=pts3, tt3_lengths=lengths3)
+    from waveforminversionust_tpu.models import acquisition3d
+    pos3 = acquisition3d.cylinder_positions(**TT3_POS)
+    snapped = np.stack([tt_snap(grid3.x, pos3[:, 0]),
+                        tt_snap(grid3.y, pos3[:, 1]),
+                        tt_snap(grid3.z, pos3[:, 2])], 1)
+    acq3 = acquisition3d.build_acquisition3d(grid3, pos3,
+                                             min_angle=TT3_MIN_ANGLE)
+    n3, n_act = np.asarray(acq3.rx_elem).shape
+    tx_e = np.repeat(np.arange(n3), n_act)
+    rx_e = np.asarray(acq3.rx_elem).ravel()
+    t_obs3 = np.asarray(traveltime3d.straight_ray_times_3d(
+        slow3, snapped[tx_e], snapped[rx_e], grid3))
+    for name, fn in (("straight", traveltime3d.invert_travel_times_3d),
+                     ("bent", traveltime3d.invert_travel_times_bent_3d)):
+        kw = dict(n_outer=TT_OUTER) if name == "bent" else {}
+        v, r = fn(t_obs3, snapped[tx_e], snapped[rx_e], grid3, c_ref=TT_C,
+                  lam_smooth=TT_LAM, **kw)
+        out.update({f"tt3_{name}": v, f"tt3_{name}_relres": r})
+    t_all3 = np.zeros((n3, n3))
+    t_all3[tx_e, rx_e] = t_obs3
+    out.update(tt3_traces=tt_traces(t_all3, times))
+    td3 = _tt_dataset_3d(grid3, pos3, snapped, out["tt3_traces"], times)
+    for method in ("straight", "bent"):
+        out[f"tt3_init_{method}"] = traveltime3d.traveltime_init_3d(
+            td3, grid3, min_angle=TT3_MIN_ANGLE, c_ref=TT_C, method=method,
+            n_outer=TT_OUTER)
+    np.savez_compressed(OUT_TT, **{k: np.asarray(v) for k, v in out.items()})
+    print(f"wrote {OUT_TT}: {len(out)} arrays")
+
+
+def _tt_dataset(grid, pos, traces, times, cls=None):
+    """A TimeDomainDataset (either package's ``cls``) over the synthetic
+    traces; only its geometry, comb period and traces are read."""
+    if cls is None:
+        from waveforminversionust_tpu.data.timedomain import \
+            TimeDomainDataset as cls
+    nf = 3
+    return cls(x=np.asarray(grid.x), y=np.asarray(grid.y),
+               c=tt_blob(grid), x_circ=pos[:, 0], y_circ=pos[:, 1],
+               freqs=TT_DF * np.arange(1, nf + 1), df=TT_DF,
+               spectrum=np.ones(nf), times=times, traces=traces)
+
+
+def _tt_dataset_3d(grid, pos, snapped, traces, times, cls=None):
+    """The 3D counterpart of :func:`_tt_dataset`."""
+    if cls is None:
+        from waveforminversionust_tpu.data.timedomain3d import \
+            TimeDomainDataset3D as cls
+    nf = 3
+    return cls(c=tt_blob(grid, radius=3e-3), positions=pos,
+               positions_snapped=snapped,
+               freqs=TT_DF * np.arange(1, nf + 1), df=TT_DF,
+               spectrum=np.ones(nf), times=times, traces=traces)
+
+
+OUT_M3 = os.path.join(os.path.dirname(__file__), "torch_methods3d.npz")
+M3_C = OBJ3_C                   # the gradient's point and the starts
+M3_GRAD = dict(iter_cap=2000, use_gmres=True, tol=1e-5, restart=16,
+               estimate_sources=False)
+M3_ALPHA0 = 10.0                # Np/m, the lossy gradient's point
+M3_ABSORBER = (40.0, 3e-3)      # peak [Np/m] and radius of the absorber
+M3_ITERS = 2                    # L-BFGS iterations (GMRES tol CG3_TOL)
+M3_ATT_ITERS = 1                # alpha and joint iterations
+M3_TOL = 2e-3                   # GN's, alpha's and joint's GMRES tolerance
+M3_GN = dict(num_iterations=1, cg_iters=2)
+M3_ATT = dict(estimate_sources=False, alpha_scale=40.0)
+M3_CAL = dict(gmres_tol=1e-5, c_min=1440.0, c_max=1560.0, num=4, levels=1)
+
+
+def m3_absorber(grid):
+    r2 = sum(c ** 2 for c in grid.meshgrid())
+    return (M3_ABSORBER[0] * np.exp(-r2 / M3_ABSORBER[1] ** 2)
+            ).astype(np.float32)
+
+
+def main_methods3d():
+    """torch_methods3d.npz: the 3D methods on the 15^3 blob of main_3d."""
+    from waveforminversionust_tpu.fwi import calibrate, fwi3d, lbfgs, newton
+    from waveforminversionust_tpu.models import acquisition3d
+    from waveforminversionust_tpu.models.grid3d import Grid3D
+    from waveforminversionust_tpu.ops import born3d, cpx
+
+    out = {}
+    grid = Grid3D.centered(G3_EXTENT, G3_H)
+    pml = PMLConfig(**PML3)
+    vel = blob3d(grid)
+    pos = acquisition3d.cylinder_positions(**RING3)
+    acq = acquisition3d.build_acquisition3d(grid, pos, min_angle=MIN_ANGLE3)
+    s = cpx.scale(acquisition3d.source_fields_3d(acq, grid), SRC_SCALE3)
+
+    def dataset(alpha=None):
+        wv, _ = born3d.born_series_solve_3d(vel, s, F3, grid, pml,
+                                            iter_cap=CG3_CAP,
+                                            attenuation=alpha)
+        rec = fwi3d.sample_receivers_3d(wv, jnp.asarray(acq.rx_idx))
+        return fwi3d.build_fwi_data_3d(acq, rec, F3, grid)._replace(src=s)
+
+    data, lossy = dataset(), dataset(jnp.asarray(m3_absorber(grid)))
+    out.update(m3_rec=cpx.to_numpy(data.rec_obs),
+               m3_lossy_rec=cpx.to_numpy(lossy.rec_obs))
+    n = grid.nx * grid.ny * grid.nz
+    slow = jnp.full((n,), 1.0 / M3_C, jnp.float32)
+    k0 = 2.0 * np.pi * F3 / M3_C
+
+    def loss_fn(sl, a):
+        return lbfgs.fwi_loss_3d(sl, data._replace(attenuation=a), grid, pml,
+                                 shell_k0=k0, **M3_GRAD)
+
+    out["m3_grad"] = jax.grad(loss_fn)(slow, None)
+    gs, ga = jax.grad(loss_fn, argnums=(0, 1))(
+        slow, jnp.full(grid.shape, M3_ALPHA0, jnp.float32))
+    out.update(m3_grad_lossy=gs, m3_grad_alpha=ga)
+
+    vel0 = np.full(grid.shape, M3_C, np.float32)
+    res = lbfgs.run_lbfgs_3d(vel0, data, grid, pml, iter_cap=CG3_CAP,
+                             tol=CG3_TOL, num_iterations=M3_ITERS)
+    out.update(m3_lbfgs_loss=res.loss_history, m3_lbfgs_velocity=res.velocity)
+    v, m = newton.run_gauss_newton_3d(
+        vel0, data, grid, FWIConfig(clip_velocity=CG3_CLIP), pml=pml,
+        iter_cap=CG3_CAP, gmres_tol=M3_TOL, **M3_GN)
+    out.update(m3_gn_velocity=v, m3_gn_loss=m.loss, m3_gn_step=m.step_size,
+               m3_gn_backtracks=m.backtracks, m3_gn_relres=m.cg_relres)
+    for name, v0, joint in (("alpha", vel, False), ("joint", vel0, True)):
+        res = lbfgs.run_lbfgs_attenuation_3d(
+            v0, np.zeros(grid.shape, np.float32), lossy, grid, pml,
+            iter_cap=CG3_CAP, tol=M3_TOL, num_iterations=M3_ATT_ITERS,
+            invert_velocity=joint, **M3_ATT)
+        out.update({f"m3_{name}_loss": res.loss_history,
+                    f"m3_{name}_velocity": res.velocity,
+                    f"m3_{name}_attenuation": res.attenuation})
+    cal = calibrate.calibrate_background_speed_3d(data, grid, pml=pml,
+                                                  **M3_CAL)
+    out.update(m3_cal_c0=cal.c0, m3_cal_candidates=cal.candidates,
+               m3_cal_misfits=cal.misfits)
+    np.savez_compressed(OUT_M3, **{k: np.asarray(v) for k, v in out.items()})
+    print(f"wrote {OUT_M3}: {len(out)} arrays")
+
+
 if __name__ == "__main__":
-    commands = {"solvers": main_solvers, "3d": main_3d}
+    commands = {"solvers": main_solvers, "3d": main_3d,
+                "traveltime": main_traveltime, "methods3d": main_methods3d}
     commands[sys.argv[1]]() if sys.argv[1:] else main()

@@ -223,7 +223,21 @@ def test_spectral_auto_is_the_fft_route():
 
 
 def test_born_solve_3d_diff_waits_for_the_3d_methods():
-    with pytest.raises(NotImplementedError, match="A5b"):
-        born3d.born_solve_3d_diff(np.full((5, 5, 5), 1500.0, np.float32),
-                                  np.zeros((1, 5, 5, 5), np.complex64),
-                                  GEN.F3, Grid3D.centered(2e-3, 1e-3))
+    """The differentiable 3D solve, which the 3D methods ride, runs: its
+    forward is the plain solve's, by GMRES and by the series, lossless and
+    lossy, bit for bit."""
+    vel = torch.as_tensor(GEN.blob3d(_grid()))
+    src = torch.as_tensor(GEN.born3d_sources(vel.shape))
+    alpha = torch.full(vel.shape, GEN.ALPHA3)
+    for att in (None, alpha):
+        u = born3d.born_solve_3d_diff(vel, src, GEN.F3, _grid(), PML,
+                                      tol=1e-4, attenuation=att)
+        plain, _ = born3d.born_gmres_solve_3d(vel, src, GEN.F3, _grid(), PML,
+                                              tol=1e-4, maxiter=600,
+                                              restart=8, attenuation=att)
+        assert torch.equal(u, plain)
+    u = born3d.born_solve_3d_diff(vel, src, GEN.F3, _grid(), PML,
+                                  iter_cap=50, use_gmres=False)
+    plain, _ = born3d.born_series_solve_3d(vel, src, GEN.F3, _grid(), PML,
+                                           iter_cap=50)
+    assert torch.equal(u, plain)

@@ -461,7 +461,8 @@ MODULES = ["models.acquisition", "models.phantom", "models.grid3d",
            "fwi.objective", "fwi.optimizers", "fwi.regularization",
            "fwi.calibrate", "fwi.runner", "fwi.lbfgs", "fwi.newton",
            "fwi.resolution", "fwi.multifreq", "fwi.fwi3d", "fwi.runner3d",
-           "utils.checkpoint"]
+           "fwi.eikonal", "fwi.traveltime", "fwi.eikonal3d",
+           "fwi.traveltime3d", "utils.checkpoint"]
 # Parameters the port adds, beside the entry points' ``device=``, and why.
 ALLOWED = {
     ("ops.batched_inv", "batched_inv"): {

@@ -229,9 +229,12 @@ def test_invert_dataset_3d_resume(datasets, full_run):
 def test_invert_dataset_3d_schedule_and_methods(datasets):
     """A scheduled frequency matches a dataset key to a relative 1e-6 and
     raises beyond; a single dataset and a list are accepted; "gn",
-    "lbfgs", "alpha" and "joint" raise NotImplementedError until the 3D
-    methods come, an unknown method ValueError, ``mesh`` and a c_init of
-    the wrong shape too."""
+    "lbfgs", "alpha" and "joint" run an iteration each (the attenuation
+    map lands in the metrics of the last two) and raise the JAX package's
+    ValueErrors for scattered-field data (gn, alpha, joint) and for
+    ``mesh`` and ``encode``; an unknown method raises ValueError, ``mesh``
+    under "cg" NotImplementedError, and a c_init of the wrong shape
+    ValueError."""
     f0 = GEN.TD3_FREQS[0]
     res = runner3d.invert_dataset_3d(
         datasets, GRID, continuation=ContinuationConfig(
@@ -245,10 +248,25 @@ def test_invert_dataset_3d_schedule_and_methods(datasets):
         runner3d.invert_dataset_3d(datasets, GRID, continuation=
                                    ContinuationConfig(frequencies=(9e9,)),
                                    **INVERT)
-    for method in ("gn", "lbfgs", "alpha", "joint"):
-        with pytest.raises(NotImplementedError, match="A5b"):
-            runner3d.invert_dataset_3d(datasets, GRID, method=method,
-                                       **INVERT)
+    one = datasets[1]
+    for method, kw in (("gn", dict(cg_iters=1)), ("lbfgs", {}),
+                       ("alpha", {}), ("joint", {})):
+        res = runner3d.invert_dataset_3d(one, GRID, method=method,
+                                         num_iterations=1, **kw, **INVERT)
+        loss = res.metrics["loss"]
+        assert loss.shape == (1,) and np.all(np.isfinite(loss)), method
+        assert np.all(np.isfinite(res.velocity)), method
+        assert ("attenuation" in res.metrics) == (method in ("alpha",
+                                                             "joint"))
+        if method != "lbfgs":
+            with pytest.raises(ValueError, match="rec_ref"):
+                runner3d.invert_dataset_3d(
+                    one._replace(rec_ref=one.rec_obs), GRID, method=method,
+                    **INVERT)
+        for bad in (dict(mesh=object()), dict(encode=2)):
+            with pytest.raises(ValueError, match="mesh/encode"):
+                runner3d.invert_dataset_3d(one, GRID, method=method, **bad,
+                                           **INVERT)
     with pytest.raises(ValueError, match="unknown method"):
         runner3d.invert_dataset_3d(datasets, GRID, method="nope", **INVERT)
     with pytest.raises(NotImplementedError, match="slice 7"):

@@ -24,19 +24,12 @@ import numpy as np
 import torch
 
 from ..config import AcquisitionConfig, SolverConfig
-from ..device import default_device
+from ..device import default_device, resolve_device as _device
 from ..models.acquisition import (build_ring_acquisition, ring_positions,
                                   snap_to_grid)
 from ..models.grid import Grid2D
 from ..ops.solve import solve_helmholtz
 from .synthesize import RingDataset, dataclass_replace_tx_all
-
-
-def _device(vel, device):
-    """``device``, else ``vel``'s if it is a tensor, else the card."""
-    if device is not None:
-        return torch.device(device)
-    return vel.device if isinstance(vel, torch.Tensor) else default_device()
 
 
 def hanning_window(n: int) -> np.ndarray:

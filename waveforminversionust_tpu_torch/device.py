@@ -16,3 +16,12 @@ def default_device() -> torch.device:
             "card by default; pass device='cpu' to run the plain PyTorch "
             "path on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(x, device=None) -> torch.device:
+    """Where an entry point runs: ``device`` when named, else the device of
+    ``x`` when it is a tensor (port tensors run where they live), else the
+    card (:func:`default_device`, which raises without one)."""
+    if device is not None:
+        return torch.device(device)
+    return x.device if isinstance(x, torch.Tensor) else default_device()

@@ -1,6 +1,5 @@
 """Background (water) sound-speed calibration and receiver sensitivities
-from the recorded data (port of the 2D part of
-``waveforminversionust_tpu.fwi.calibrate``).
+from the recorded data (port of ``waveforminversionust_tpu.fwi.calibrate``).
 
 After per-shot variable projection of the unknown source strengths, the
 homogeneous-medium misfit J(c) has a sharp minimum at the background speed,
@@ -12,8 +11,10 @@ fwi_script.py:90).
 Each candidate is one forward solve of all transmitters through the port's
 ``solve_helmholtz`` (under ``factorization="auto"`` on the card: the CUDA
 factor kernel, then the sweep kernel), then the receiver gather and the
-source-strength projection on the same device. The receiver-sensitivity
-fixed point stays host-side numpy in complex128, as in the reference.
+source-strength projection on the same device; in 3D
+(:func:`calibrate_background_speed_3d`) each candidate is one homogeneous
+spectral 3D solve, where no kernel runs. The receiver-sensitivity fixed
+point stays host-side numpy in complex128, as in the reference.
 """
 
 from __future__ import annotations
@@ -168,6 +169,68 @@ def _zoom_search(J, c_min, c_max, num, levels) -> CalibrationResult:
         misfits=all_j_arr[order],
         c_grid_best=float(all_c_arr[int(np.argmin(all_j_arr))]),
     )
+
+
+def background_misfit_fn_3d(data, grid, pml=None, iter_cap: int = 400,
+                            solver3d: str = "gmres", gmres_tol: float = 1e-4,
+                            spectral: str = "auto"):
+    """3D ``J(c)``: the relative projected misfit of a homogeneous volume
+    at speed ``c`` through the spectral 3D solve (:mod:`.fwi3d`), on the
+    device of the :class:`~.fwi3d.FWIData3D` ``data``. The homogeneous
+    potential is near zero, so each solve converges in a few matvecs.
+    ``gmres_tol`` is tighter than the FWI loop's 2e-3: the misfit
+    differences between nearby candidates must stay above the solver's
+    noise floor for the parabolic fit."""
+    from ..config import PMLConfig
+    from .fwi3d import FWIData3D, _make_solve_3d, sample_receivers_3d
+
+    if not isinstance(data, FWIData3D):
+        raise TypeError(f"data must be an FWIData3D, got {type(data)}")
+    if data.rec_ref is not None:
+        # The direct arrival, which carries the background speed, is
+        # removed from scattered-field data: calibrate on the total field,
+        # then convert with scattered_data_3d(c_ref=result.c0).
+        raise ValueError("calibrate on total-field data (before "
+                         "scattered_data_3d), not on scattered data")
+    pml = pml or PMLConfig()
+    solve = _make_solve_3d(grid, pml, iter_cap, solver3d=solver3d,
+                           gmres_tol=gmres_tol, spectral=spectral)
+    device = data.src.device
+
+    def J(c):
+        vel = torch.full(grid.shape, float(np.float32(c)),
+                         dtype=torch.float32, device=device)
+        u, _ = solve(vel, data.src, data.f, attenuation=data.attenuation)
+        rec = sample_receivers_3d(u, data.rx_idx)
+        rec = rec * estimate_source_strengths(rec, data.rec_obs)[:, None]
+        obs_energy = 0.5 * torch.sum(data.rec_obs.real ** 2
+                                     + data.rec_obs.imag ** 2)
+        return misfit(rec, data.rec_obs) / torch.clamp(obs_energy, min=1e-38)
+
+    return J
+
+
+def calibrate_background_speed_3d(data, grid, *, pml=None,
+                                  iter_cap: int = 400,
+                                  solver3d: str = "gmres",
+                                  gmres_tol: float = 1e-4,
+                                  spectral: str = "auto",
+                                  c_min: float = 1400.0,
+                                  c_max: float = 1600.0,
+                                  num: int = 9,
+                                  levels: int = 2) -> CalibrationResult:
+    """3D background-speed calibration over an :class:`~.fwi3d.FWIData3D`
+    (the search of :func:`calibrate_background_speed`: ``levels * num``
+    homogeneous 3D solves), on the data's device. Feed ``result.c0`` to
+    ``invert_dataset_3d(c_init=...)`` or as the scattered-field ``c_ref``.
+    Scale one-hot sources to O(1e6) on weak-contrast volumes: at unit
+    scale the solves' squared norms fall into FP32's denormals."""
+    if num < 3:
+        raise ValueError("num must be >= 3 for the parabolic refinement")
+    J = background_misfit_fn_3d(data, grid, pml=pml, iter_cap=iter_cap,
+                                solver3d=solver3d, gmres_tol=gmres_tol,
+                                spectral=spectral)
+    return _zoom_search(J, c_min, c_max, num, levels)
 
 
 def estimate_receiver_sensitivities(data: FWIData, acq, vel, grid: Grid2D,

@@ -1,5 +1,5 @@
-"""L-BFGS FWI over the differentiable solve (port of the 2D half of
-``waveforminversionust_tpu.fwi.lbfgs``).
+"""L-BFGS FWI over the differentiable solve (port of
+``waveforminversionust_tpu.fwi.lbfgs``), in 2D and in 3D.
 
 The loss rides :func:`..ops.solve.solve_helmholtz`, whose backward is one
 adjoint solve through the forward's own factor, so a value and gradient
@@ -18,8 +18,8 @@ Each iteration does a value-and-grad at the current point, then one more
 for every line-search trial (the reference re-evaluates the point the line
 search accepted at the top of the next iteration; so does the port).
 
-The 3D functions of the reference module are ported with the 3D slice
-(ROADMAP.md A5).
+The 3D functions ride :func:`..ops.born3d.born_solve_3d_diff`, whose
+backward is one adjoint 3D solve, on the same host loop.
 """
 
 from __future__ import annotations
@@ -375,3 +375,122 @@ def run_lbfgs_attenuation(vel_init, alpha_init, data: FWIData, grid: Grid2D,
     slow, alpha = unpack(run.params)
     return AttenuationResult(velocity=1.0 / slow, attenuation=alpha,
                              loss_history=run.history)
+
+
+# -- 3D: L-BFGS over the differentiable 3D solve ------------------------------
+
+class LBFGS3DResult(NamedTuple):
+    velocity: torch.Tensor      # (nz, ny, nx)
+    loss_history: torch.Tensor  # (num_iterations,)
+
+
+def fwi_loss_3d(slowness_flat, data, grid, pml, iter_cap: int = 600,
+                spectral: str = "auto", use_gmres: bool = True,
+                tol: float = 2e-3, restart: int = 8,
+                estimate_sources: bool = True, shell_k0=None):
+    """Volumetric masked L2 misfit over the differentiable 3D Born solve
+    (:func:`..ops.born3d.born_solve_3d_diff`), the 3D form of
+    :func:`fwi_loss`: differentiable in the (nz*ny*nx,) real slowness
+    [s/m] and, through a ``data.attenuation`` map, in alpha. In
+    scattered-field mode (``data.rec_ref``) the background gather is
+    subtracted, held constant, and the source scales are not re-fitted."""
+    from ..ops.born3d import born_solve_3d_diff
+    from .fwi3d import sample_receivers_3d
+
+    vel = 1.0 / slowness_flat.reshape(grid.shape)
+    u = born_solve_3d_diff(vel, data.src, data.f, grid, pml, iter_cap,
+                           spectral, use_gmres, tol, restart, False,
+                           shell_k0, attenuation=data.attenuation)
+    rec_sim = sample_receivers_3d(u, data.rx_idx)
+    if data.rec_ref is not None:
+        rec_sim = rec_sim - data.rec_ref.detach()
+        estimate_sources = False
+    if estimate_sources:
+        s_est = estimate_source_strengths(rec_sim, data.rec_obs)
+        rec_sim = rec_sim * s_est[:, None]
+    return misfit(rec_sim, data.rec_obs)
+
+
+def _data_norm_3d(rec_obs):
+    return torch.clamp(0.5 * torch.sum(rec_obs.real ** 2 + rec_obs.imag ** 2),
+                       min=1e-38)
+
+
+def run_lbfgs_3d(vel_init, data, grid, pml, iter_cap: int = 600,
+                 spectral: str = "auto", use_gmres: bool = True,
+                 tol: float = 2e-3, restart: int = 8,
+                 num_iterations: int = 10, memory_size: int = 10,
+                 estimate_sources: bool = True) -> LBFGS3DResult:
+    """3D L-BFGS inversion on the data's device (:func:`_minimize`, the
+    port's optax L-BFGS with its zoom line search), with :func:`run_lbfgs`'s
+    conditioning: slowness relative to the starting model's mean and a
+    data-normalized misfit. A value and gradient costs one forward and one
+    adjoint 3D solve; the history is the misfit at each iteration's
+    starting point."""
+    device = data.src.device
+    slow0 = (1.0 / torch.as_tensor(vel_init, dtype=torch.float32)
+             .to(device)).reshape(-1)
+    slow_ref = torch.mean(slow0)
+    data_norm = _data_norm_3d(data.rec_obs)
+
+    def loss_fn(p):
+        return fwi_loss_3d(p * slow_ref, data, grid, pml, iter_cap, spectral,
+                           use_gmres, tol, restart,
+                           estimate_sources) / data_norm
+
+    run = _minimize(loss_fn, slow0 / slow_ref, num_iterations, memory_size,
+                    lambda p, loss: loss * data_norm)
+    vel = 1.0 / (run.params * slow_ref).reshape(grid.shape)
+    return LBFGS3DResult(velocity=vel, loss_history=run.history)
+
+
+class Attenuation3DResult(NamedTuple):
+    velocity: torch.Tensor      # (nz, ny, nx) [m/s]
+    attenuation: torch.Tensor   # (nz, ny, nx) [Np/m]
+    loss_history: torch.Tensor  # (num_iterations,) data misfit
+
+
+def run_lbfgs_attenuation_3d(vel_init, alpha_init, data, grid, pml,
+                             iter_cap: int = 600, spectral: str = "auto",
+                             use_gmres: bool = True, tol: float = 2e-3,
+                             restart: int = 8, num_iterations: int = 10,
+                             memory_size: int = 10,
+                             estimate_sources: bool = True,
+                             invert_velocity: bool = False,
+                             alpha_scale: float = 50.0,
+                             velocity_scale: float = 0.01
+                             ) -> Attenuation3DResult:
+    """3D attenuation inversion by L-BFGS through the lossy differentiable
+    solve, the volumetric form of :func:`run_lbfgs_attenuation` with its
+    scaling (alpha / ``alpha_scale``; jointly, slowness as slow0 (1 +
+    ``velocity_scale`` q); alpha clipped at 0 at evaluation). The alpha
+    gradient is the lossy backward: one adjoint solve an evaluation."""
+    device = data.src.device
+    slow0 = (1.0 / torch.as_tensor(vel_init, dtype=torch.float32)
+             .to(device)).reshape(-1)
+    alpha0 = torch.as_tensor(alpha_init, dtype=torch.float32).to(device) \
+        .reshape(-1)
+    a_ref = float(f32(alpha_scale))
+    vs = float(f32(velocity_scale))
+    data_norm = _data_norm_3d(data.rec_obs)
+    n_pix = slow0.numel()
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+
+    def unpack(p):
+        slow = slow0 * (1.0 + vs * p[:n_pix]) if invert_velocity else slow0
+        alpha = torch.maximum(p[-n_pix:] * a_ref, zero)
+        return slow, alpha.reshape(grid.shape)
+
+    def loss_fn(p):
+        slow, alpha = unpack(p)
+        d = data._replace(attenuation=alpha)
+        return fwi_loss_3d(slow, d, grid, pml, iter_cap, spectral, use_gmres,
+                           tol, restart, estimate_sources) / data_norm
+
+    params0 = (torch.cat([torch.zeros_like(slow0), alpha0 / a_ref])
+               if invert_velocity else alpha0 / a_ref)
+    run = _minimize(loss_fn, params0, num_iterations, memory_size,
+                    lambda p, loss: loss * data_norm)
+    slow, alpha = unpack(run.params)
+    return Attenuation3DResult(velocity=(1.0 / slow).reshape(grid.shape),
+                               attenuation=alpha, loss_history=run.history)

@@ -1,4 +1,4 @@
-"""Truncated Gauss-Newton FWI (inexact Newton-CG; port of the 2D half of
+"""Truncated Gauss-Newton FWI (inexact Newton-CG; port of
 ``waveforminversionust_tpu.fwi.newton``).
 
 No autograd: the Frechet derivative and its adjoint are each one Helmholtz
@@ -20,8 +20,9 @@ backtracking ``while_loop`` a Python loop. The host reads one scalar an
 inner iteration (its convergence test), one an outer iteration and one a
 trial (the losses). The inner CG stops at the first converged iteration:
 the reference freezes the rest and discards their solves, so the port
-skips them (same result, fewer launches). ``run_gauss_newton_3d`` is ported with the 3D slice (ROADMAP.md
-A5) and ``mesh`` with the multi-device slice (A7).
+skips them (same result, fewer launches). ``run_gauss_newton_3d`` is the
+same loop over the 3D spectral solve, every J and J^H product a 3D solve;
+``mesh`` is ported with the multi-device slice (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -188,6 +189,40 @@ def make_frechet_operators(op, data: FWIData, grid: Grid2D,
     return j_apply, jt_apply, virt
 
 
+def _backtrack(forward, project, cur, dm, step, max_bt: int = 4):
+    """Halve the step along ``dm`` until the true misfit decreases (one
+    device sync a trial reads its loss), up to ``max_bt`` times, then
+    reject: (the accepted trial's forward state or ``cur``, GNMetrics with
+    the iteration's loss, the accepted step (0 when rejected) and the
+    halvings)."""
+    loss = float(cur.loss)
+
+    def accept(c):
+        new_loss = float(c.loss)
+        return bool(np.isfinite(new_loss) and new_loss < loss)
+
+    k_bt, t = 0, step
+    cand = forward(project(cur.slow + t * dm))
+    ok = accept(cand)
+    while not ok and k_bt < max_bt:
+        k_bt, t = k_bt + 1, 0.5 * t
+        cand = forward(project(cur.slow + t * dm))
+        ok = accept(cand)
+    metrics = GNMetrics(
+        loss=cur.loss, grad_norm=None,
+        step_size=t if ok else torch.zeros_like(t), cg_relres=None,
+        backtracks=torch.tensor(k_bt, dtype=torch.int32,
+                                device=cur.slow.device))
+    return (cand if ok else cur), metrics
+
+
+def _stack_metrics(history, device) -> GNMetrics:
+    """The per-iteration GNMetrics stacked into (outer,) histories."""
+    return GNMetrics(*(torch.stack([getattr(m, f) for m in history])
+                       if history else torch.zeros(0, device=device)
+                       for f in GNMetrics._fields))
+
+
 class _Forward(NamedTuple):
     slow: torch.Tensor
     op: object
@@ -263,7 +298,6 @@ def run_gauss_newton(vel_init, data: FWIData, grid: Grid2D,
     # is the next iteration's forward work.
     cur = forward(slow0)
     history = []
-    max_bt = 4
     for _ in range(num_iterations):
         residual = cur.rec - data.rec_obs
         j_apply, jt_apply, virt = make_frechet_operators(
@@ -282,31 +316,110 @@ def run_gauss_newton(vel_init, data: FWIData, grid: Grid2D,
 
         dm, cg_relres = _pcg(hvp, -grad, diag, cg_iters, cg_tol)
         step = _linearized_step(j_apply(dm), residual)
-
-        # Halve until the true misfit decreases (a factorization and a
-        # forward solve a trial; one device sync a trial reads its loss).
-        loss = float(cur.loss)
-
-        def accept(c):
-            new_loss = float(c.loss)
-            return bool(np.isfinite(new_loss) and new_loss < loss)
-
-        k_bt, t = 0, step
-        cand = forward(project(cur.slow + t * dm))
-        ok = accept(cand)
-        while not ok and k_bt < max_bt:
-            k_bt, t = k_bt + 1, 0.5 * t
-            cand = forward(project(cur.slow + t * dm))
-            ok = accept(cand)
-        history.append(GNMetrics(
-            loss=cur.loss * loss_unscale,
+        # a factorization and a forward solve a trial
+        cur, metrics = _backtrack(forward, project, cur, dm, step)
+        history.append(metrics._replace(
             grad_norm=torch.linalg.norm(grad) * loss_unscale,
-            step_size=t if ok else torch.zeros_like(t), cg_relres=cg_relres,
-            backtracks=torch.tensor(k_bt, dtype=torch.int32, device=device)))
-        if ok:
-            cur = cand
-        del cand
-    metrics = GNMetrics(*(torch.stack([getattr(m, f) for m in history])
-                          if history else torch.zeros(0, device=device)
-                          for f in GNMetrics._fields))
-    return GNResult(velocity=1.0 / cur.slow, metrics=metrics)
+            loss=metrics.loss * loss_unscale, cg_relres=cg_relres))
+    return GNResult(velocity=1.0 / cur.slow,
+                    metrics=_stack_metrics(history, device))
+
+
+class _Forward3D(NamedTuple):
+    slow: torch.Tensor
+    wv: torch.Tensor
+    rec: torch.Tensor
+    loss: torch.Tensor
+
+
+def run_gauss_newton_3d(vel_init, data, grid, fwi: FWIConfig = FWIConfig(),
+                        num_iterations: int = 5, cg_iters: int = 6,
+                        lm_damping: float = 0.1, reg_smooth: float = 1.0,
+                        cg_tol: float = 1e-3, pml=None, iter_cap: int = 600,
+                        solver3d: str = "gmres", gmres_tol: float = 2e-3,
+                        gmres_restart: int = 8, spectral: str = "auto"):
+    """Truncated Gauss-Newton over the 3D spectral solver on the data's
+    device: :func:`run_gauss_newton`'s scheme, where every J or J^H
+    application is a full 3D solve (no factorization to amortize), so an
+    outer iteration costs 3 + 2 * cg_iters + backtracks solves. The 3D
+    operator applies k^2 pointwise, so the classical virtual source is the
+    exact discrete Frechet derivative. The accepted trial's forward state
+    is the next iteration's.
+
+    Args:
+        data: :class:`~.fwi3d.FWIData3D`.
+        pml: default PMLConfig(a0=20, l_pml=12e-3), the 3D solvers'.
+
+    Returns:
+        (velocity (nz, ny, nx), GNMetrics history).
+    """
+    from ..config import PMLConfig
+    from .fwi3d import (_make_solve_3d, sample_receivers_3d,
+                        scatter_to_volumes_3d)
+
+    if pml is None:
+        pml = PMLConfig(a0=20.0, l_pml=12e-3)
+    solve = _make_solve_3d(grid, pml, iter_cap, solver3d=solver3d,
+                           gmres_tol=gmres_tol, gmres_restart=gmres_restart,
+                           spectral=spectral)
+    device = data.src.device
+    slow0 = 1.0 / torch.as_tensor(vel_init, dtype=torch.float32).to(device)
+    s_d = _data_normalization(data.rec_obs)
+    data = data._replace(src=data.src * s_d, rec_obs=data.rec_obs * s_d)
+    loss_unscale = 1.0 / (s_d * s_d)
+
+    def project(slow_x):
+        if fwi.clip_velocity is None:
+            return slow_x
+        lo, hi = fwi.clip_velocity
+        return 1.0 / torch.clamp(1.0 / slow_x, lo, hi)
+
+    def forward(slow_x) -> _Forward3D:
+        wv, _ = solve(1.0 / slow_x, data.src, data.f,
+                      attenuation=data.attenuation)
+        rec = sample_receivers_3d(wv, data.rx_idx)
+        if fwi.estimate_source_strength:
+            s_est = estimate_source_strengths(rec, data.rec_obs)
+            wv = wv * s_est[:, None, None, None]
+            rec = rec * s_est[:, None]
+        return _Forward3D(slow_x, wv, rec, misfit(rec, data.rec_obs))
+
+    alpha_signed = None
+    if data.attenuation is not None:
+        alpha_signed = (float(np.sign(pml.sign_convention))
+                        * data.attenuation)
+    cur = forward(slow0)
+    history = []
+    for _ in range(num_iterations):
+        vel = 1.0 / cur.slow
+        residual = cur.rec - data.rec_obs
+        virt = virtual_source(cur.slow, cur.wv, data.f, alpha_signed)
+
+        def j_apply(dm):
+            du, _ = solve(vel, _mul_fields(virt, -dm), data.f,
+                          attenuation=data.attenuation)
+            return sample_receivers_3d(du, data.rx_idx)
+
+        def jt_apply(r):
+            a, _ = solve(vel, scatter_to_volumes_3d(r, data.rx_idx,
+                                                    grid.shape),
+                         data.f, adjoint=True, attenuation=data.attenuation)
+            return _grad_contract(virt, a)
+
+        grad = jt_apply(residual)
+        illum = illumination_map(virt)
+        diag = illum + fwi.precondition_eps * torch.max(illum)
+        s_reg = reg_smooth * torch.mean(diag) / 12.0  # ||L^T L||_inf
+
+        def hvp(dm):
+            return (jt_apply(j_apply(dm)) + lm_damping * diag * dm
+                    + s_reg * _laplacian_ltl(dm))
+
+        dm, cg_relres = _pcg(hvp, -grad, diag, cg_iters, cg_tol)
+        step = _linearized_step(j_apply(dm), residual)
+        # a 3D forward solve a trial
+        cur, metrics = _backtrack(forward, project, cur, dm, step)
+        history.append(metrics._replace(
+            grad_norm=torch.linalg.norm(grad) * loss_unscale,
+            loss=metrics.loss * loss_unscale, cg_relres=cg_relres))
+    return 1.0 / cur.slow, _stack_metrics(history, device)

@@ -1,13 +1,12 @@
 """The 3D inversion entry point (port of
 ``waveforminversionust_tpu.fwi.runner3d``): multi-frequency continuation
-over the volumetric nonlinear CG.
+over the volumetric methods.
 
 Takes the ``{frequency: FWIData3D}`` mapping (or a list, or one dataset)
 that :func:`~..data.timedomain3d.timedomain_to_fwi_data_3d` produces, runs
-the stages low to high, each warm-started from the last, and collects the
-histories. The inversion runs where the datasets live. Method ``"cg"`` is
-ported; ``"gn"``, ``"lbfgs"``, ``"alpha"`` and ``"joint"`` come with the 3D
-methods (ROADMAP.md A5b) and raise until then.
+the stages low to high, each warm-started from the last (the attenuation
+map too, under "alpha" and "joint"), and collects the histories. The
+inversion runs where the datasets live.
 """
 
 from __future__ import annotations
@@ -22,8 +21,10 @@ from ..config import ContinuationConfig, FWIConfig, PMLConfig
 from ..models.grid3d import Grid3D
 from ..utils import checkpoint
 from .fwi3d import FWIData3D, nonlinear_cg_3d
+from .lbfgs import run_lbfgs_3d, run_lbfgs_attenuation_3d
+from .newton import run_gauss_newton_3d
 
-_LATER = ("gn", "lbfgs", "alpha", "joint")
+_METHODS = ("cg", "gn", "lbfgs", "alpha", "joint")
 
 
 class InversionResult3D(NamedTuple):
@@ -104,20 +105,26 @@ def invert_dataset_3d(datasets, grid: Grid3D,
                       num_iterations: int | None = None,
                       checkpoint_dir: str | None = None,
                       resume_from: str | None = None) -> InversionResult3D:
-    """Invert one or many per-frequency 3D datasets with nonlinear CG
-    (:func:`~.fwi3d.nonlinear_cg_3d`).
+    """Invert one or many per-frequency 3D datasets.
 
     Args:
         datasets: one :class:`~.fwi3d.FWIData3D`, a list of them, or a
             ``{frequency: FWIData3D}`` mapping.
-        method: "cg"; "gn", "lbfgs", "alpha" and "joint" (whose knobs are
-            ``cg_iters``, ``lm_damping``, ``reg_smooth``) raise
-            ``NotImplementedError`` until the 3D methods are ported.
+        method: "cg" (:func:`~.fwi3d.nonlinear_cg_3d`; takes ``encode``),
+            "gn" (:func:`~.newton.run_gauss_newton_3d`; ``cg_iters``,
+            ``lm_damping``, ``reg_smooth`` are its knobs), "lbfgs"
+            (:func:`~.lbfgs.run_lbfgs_3d`), or "alpha" / "joint"
+            (:func:`~.lbfgs.run_lbfgs_attenuation_3d`: the attenuation map
+            in the fixed starting medium, or jointly with the velocity; the
+            map lands in ``metrics['attenuation']``). Scattered-field data
+            (``rec_ref``) takes "cg" and "lbfgs" only; ``mesh`` and
+            ``encode`` are "cg" options.
         continuation: optional schedule; each listed frequency (matched to
             a dataset key to a relative 1e-6, since keys are float32 values)
             runs ``iterations_per_frequency`` iterations from the previous
             stage's model. None: every dataset once in ascending frequency
-            with ``num_iterations`` (default ``fwi.num_iterations``).
+            with ``num_iterations`` (default: ``fwi.num_iterations`` for
+            "cg", 5 for "gn", 10 for the others).
         c_init: None (homogeneous ``fwi.c_init``), a scalar, or an (nz, ny,
             nx) volume.
         callback: ``callback(stage_idx, frequency, velocity, metrics)``
@@ -147,12 +154,7 @@ def invert_dataset_3d(datasets, grid: Grid3D,
                              continuation.iterations_per_frequency))
     else:
         schedule = [(f, num_iterations) for f in sorted(datasets)]
-    if method in _LATER:
-        raise NotImplementedError(
-            f"method {method!r} of invert_dataset_3d is ported with the 3D "
-            "Gauss-Newton, L-BFGS and attenuation methods in a later slice "
-            "(ROADMAP.md A5b)")
-    if method != "cg":
+    if method not in _METHODS:
         raise ValueError(f"unknown method {method!r} (expected 'cg', "
                          "'gn', 'lbfgs', 'alpha' or 'joint')")
 
@@ -174,14 +176,50 @@ def invert_dataset_3d(datasets, grid: Grid3D,
     for stage_idx, (f, iters) in enumerate(schedule):
         if stage_idx < start_stage:
             continue
-        vel, metrics = nonlinear_cg_3d(
-            vel, datasets[f], grid, fwi, num_iterations=iters, pml=pml,
-            iter_cap=iter_cap, mesh=mesh, grid_axis=grid_axis,
-            solver3d=solver3d, gmres_tol=gmres_tol,
-            gmres_restart=gmres_restart, spectral=spectral, encode=encode,
-            encode_seed=encode_seed + stage_idx,
-            chunk_iterations=chunk_iterations)
-        stage_loss = metrics.loss.cpu().numpy()
+        data = datasets[f]
+        if data.rec_ref is not None and method not in ("cg", "lbfgs"):
+            raise ValueError(
+                "scattered-field data (rec_ref) is supported by the "
+                "cg and lbfgs methods; gn/alpha/joint would compare the "
+                "total simulation against scattered observations")
+        if method != "cg" and (mesh is not None or encode is not None):
+            raise ValueError("mesh/encode are CG-path options; pre-encode "
+                             "the data with fwi3d.encode_supershots instead")
+        if method == "cg":
+            vel, metrics = nonlinear_cg_3d(
+                vel, data, grid, fwi, num_iterations=iters, pml=pml,
+                iter_cap=iter_cap, mesh=mesh, grid_axis=grid_axis,
+                solver3d=solver3d, gmres_tol=gmres_tol,
+                gmres_restart=gmres_restart, spectral=spectral,
+                encode=encode, encode_seed=encode_seed + stage_idx,
+                chunk_iterations=chunk_iterations)
+            history = metrics.loss
+        elif method == "gn":
+            vel, metrics = run_gauss_newton_3d(
+                vel, data, grid, fwi,
+                num_iterations=(iters if iters is not None else 5),
+                cg_iters=cg_iters, lm_damping=lm_damping,
+                reg_smooth=reg_smooth, pml=pml, iter_cap=iter_cap,
+                solver3d=solver3d, gmres_tol=gmres_tol,
+                gmres_restart=gmres_restart, spectral=spectral)
+            history = metrics.loss
+        elif method == "lbfgs":
+            metrics = run_lbfgs_3d(
+                vel, data, grid, pml, iter_cap=iter_cap, spectral=spectral,
+                use_gmres=(solver3d == "gmres"), tol=gmres_tol,
+                restart=gmres_restart,
+                num_iterations=(iters if iters is not None else 10))
+            vel, history = metrics.velocity, metrics.loss_history
+        else:
+            metrics = run_lbfgs_attenuation_3d(
+                vel, alpha, data, grid, pml, iter_cap=iter_cap,
+                spectral=spectral, use_gmres=(solver3d == "gmres"),
+                tol=gmres_tol, restart=gmres_restart,
+                num_iterations=(iters if iters is not None else 10),
+                invert_velocity=(method == "joint"))
+            vel, alpha = metrics.velocity, metrics.attenuation
+            history = metrics.loss_history
+        stage_loss = history.cpu().numpy()
         if fwi.clip_velocity is not None:
             vel = torch.clamp(vel, *fwi.clip_velocity)
         losses.append(stage_loss)
@@ -196,8 +234,10 @@ def invert_dataset_3d(datasets, grid: Grid3D,
         if callback is not None:
             callback(stage_idx, f, vel, metrics)
 
+    metrics_out = {"loss": np.concatenate(losses),
+                   "frequency": np.concatenate(freq_trace)}
+    if method in ("alpha", "joint"):
+        metrics_out["attenuation"] = alpha.cpu().numpy()
     return InversionResult3D(
-        velocity=vel.cpu().numpy(),
-        metrics={"loss": np.concatenate(losses),
-                 "frequency": np.concatenate(freq_trace)},
-        grid=grid, frequencies=tuple(f for f, _ in schedule))
+        velocity=vel.cpu().numpy(), metrics=metrics_out, grid=grid,
+        frequencies=tuple(f for f, _ in schedule))

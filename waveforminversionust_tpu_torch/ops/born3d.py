@@ -10,8 +10,8 @@ axis, which was the JAX package's MXU route on the TPU. The dft route runs
 its products on the real and imaginary planes, at a precision the caller
 names (:func:`_dft3`). No kernel of the port runs here.
 
-The differentiable solve (``born_solve_3d_diff``) is ported with the 3D
-methods (ROADMAP.md A5b) and raises until then.
+``born_solve_3d_diff`` is the differentiable solve of the 3D L-BFGS,
+attenuation and joint inversions: its backward is one adjoint solve.
 """
 
 from __future__ import annotations
@@ -257,14 +257,106 @@ def born_gmres_solve_3d(vel, src, f, grid: Grid3D,
     return res.x, res.iterations
 
 
+def _born3d_impl(vel, rhs, alpha, f, grid, pml, iter_cap, spectral,
+                 use_gmres, tol, restart, adjoint, shell_k0):
+    if use_gmres:
+        u, _ = born_gmres_solve_3d(vel, rhs, f, grid, pml, adjoint=adjoint,
+                                   tol=tol, maxiter=iter_cap,
+                                   restart=restart, spectral=spectral,
+                                   shell_k0=shell_k0, attenuation=alpha)
+    else:
+        u, _ = born_series_solve_3d(vel, rhs, f, grid, pml, adjoint=adjoint,
+                                    iter_cap=iter_cap, spectral=spectral,
+                                    shell_k0=shell_k0, attenuation=alpha)
+    return u
+
+
+def _adjoint_state(ctx, g):
+    """(lam, s, omega): lam = A^-H g by one solve
+    with the ``adjoint`` flag flipped (the sign flip conjugates the lossy
+    operator too), and s = sum_b conj(lam) u."""
+    vel, alpha, u = ctx.saved_tensors
+    args = ctx.args
+    lam = _born3d_impl(vel, g.resolve_conj(), alpha, *args[:-2],
+                       not args[-2], args[-1])
+    s = torch.sum(torch.conj(lam) * u, dim=0)
+    return lam, s, 2 * math.pi * args[0]
+
+
+class _Born3DLossless(torch.autograd.Function):
+    """The lossless 3D solve, differentiable in ``vel`` and the right-hand
+    side (the JAX package's ``_born3d_diff_lossless``, born3d.py:323-354).
+    PyTorch hands the backward g = dL/d(re) + i dL/d(im), which is the JAX
+    package's split (re, im) cotangent read as one complex number, so the
+    backward is its adjoint-state rule as it stands:
+
+        lam = A^-H g;  rhs_bar = lam;
+        vel_bar = -Re(sum_b conj(lam) u) dk^2/dvel,  dk^2/dvel = -2 w^2/c^3.
+
+    The absorbing shell (``shell_k0`` or the medium's detached mean) and
+    the splitting are not differentiated; ``f`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, vel, rhs, *args):
+        u = _born3d_impl(vel, rhs, None, *args)
+        ctx.save_for_backward(vel, None, u)
+        ctx.args = args
+        return u
+
+    @staticmethod
+    def backward(ctx, g):
+        lam, s, omega = _adjoint_state(ctx, g)
+        vel = ctx.saved_tensors[0]
+        vel_bar = -s.real * (-2.0 * omega ** 2 / vel ** 3)
+        return (vel_bar, lam) + (None,) * len(ctx.args)
+
+
+class _Born3DLossy(torch.autograd.Function):
+    """The lossy 3D solve (k = omega/c + i sgn alpha), differentiable in
+    ``vel``, the attenuation map ``alpha`` and the right-hand side (the JAX
+    package's ``_born3d_diff_lossy``, born3d.py:357-410). k^2 is
+    complex-analytic in both real fields, so with s = sum_b conj(lam) u and
+    k_c = omega/c + i sgn alpha, sgn the solve's sign convention:
+
+        vel_bar   = -Re(s dk2/dc),     dk2/dc     = -2 (omega/c^2) k_c
+        alpha_bar = -Re(s dk2/dalpha), dk2/dalpha = 2 i sgn k_c."""
+
+    @staticmethod
+    def forward(ctx, vel, alpha, rhs, *args):
+        u = _born3d_impl(vel, rhs, alpha, *args)
+        ctx.save_for_backward(vel, alpha, u)
+        ctx.args = args
+        return u
+
+    @staticmethod
+    def backward(ctx, g):
+        lam, s, omega = _adjoint_state(ctx, g)
+        vel, alpha, _ = ctx.saved_tensors
+        pml, adjoint = ctx.args[2], ctx.args[-2]
+        sgn = float(pml.sign_convention) * (-1.0 if adjoint else 1.0)
+        k_c = torch.complex(omega / vel, sgn * alpha)
+        vel_bar = -(s * (-2.0 * (omega / vel ** 2) * k_c)).real
+        alpha_bar = -(s * ((2j * sgn) * k_c)).real
+        return (vel_bar, alpha_bar, lam) + (None,) * len(ctx.args)
+
+
 def born_solve_3d_diff(vel, rhs, f, grid: Grid3D,
                        pml: PMLConfig = PMLConfig(a0=20.0, l_pml=12e-3),
                        iter_cap: int = 600, spectral: str = "auto",
                        use_gmres: bool = True, tol: float = 2e-3,
                        restart: int = 8, adjoint: bool = False,
                        shell_k0=None, attenuation=None):
-    """The differentiable 3D solve (adjoint-state backward) comes with the
-    3D L-BFGS, Gauss-Newton and attenuation methods."""
-    raise NotImplementedError(
-        "born_solve_3d_diff (the differentiable 3D solve) is ported with the "
-        "3D methods in a later slice (ROADMAP.md A5b)")
+    """Differentiable 3D Helmholtz solve on ``vel``'s device: the GMRES
+    (``use_gmres``, ``iter_cap`` its matvec cap) or plain-series solve of
+    (batch, nz, ny, nx) complex64 ``rhs``, whose backward is ONE adjoint
+    solve (the continuous adjoint-state identity; :class:`_Born3DLossless`,
+    :class:`_Born3DLossy` when an ``attenuation`` map is given, which is
+    then differentiable too). Returns the wavefield."""
+    vel = torch.as_tensor(vel, dtype=torch.float32)
+    rhs = torch.as_tensor(rhs).to(device=vel.device, dtype=torch.complex64)
+    args = (f, grid, pml, int(iter_cap), spectral, bool(use_gmres),
+            float(tol), int(restart), bool(adjoint), shell_k0)
+    if attenuation is None:
+        return _Born3DLossless.apply(vel, rhs, *args)
+    alpha = torch.as_tensor(attenuation, dtype=torch.float32).to(vel.device)
+    return _Born3DLossy.apply(vel, alpha, rhs, *args)
