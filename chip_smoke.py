@@ -120,7 +120,18 @@ Phases (any failure makes the exit code non-zero):
      monotone), RMSE falling (the absorber recovered under "alpha"), c0 of
      a water shot within one final-level step of 1500 m/s, no kernel
      launched;
- 19. profile (only when asked for): torch.profiler over 2 iterations of each
+ 19. cli: the port's command-line interface in-process on the card at the
+     JAX CLI's defaults, no --device given: simulate (801^2 / 0.3 mm) into
+     a .mat, qc on it, run (301^2, cg, 10 iterations) with --out held to
+     invert_dataset called directly (the same bits), RMSE falling, factor
+     and sweep kernels launched and no engine's other; run --profile (the
+     trace names the launched kernels' device functions); run --method
+     lbfgs; timedomain, broadband, broadband3d at their defaults with
+     --iterations 1 (--plot where matplotlib is installed); the scan
+     hybrids (factor_schulz_steps=4, fast_sweeps=True: no factor or sweep
+     launch) and the frozen factor at 601^2 (refactor_every=2, finite and
+     falling); the roofline of run's s/iter (utils/flops on chip_spec(0));
+ 20. profile (only when asked for): torch.profiler over 2 iterations of each
      engine, a two-cycle GMRES solve (one- and two-level) and a Born
      solve: device time by kernel name and the idle share.
 
@@ -2538,6 +2549,317 @@ class Smoke:
                    f"a kernel was launched on the 3D path: {counts}")
 
     # -- phase 19 -------------------------------------------------------
+    def cli(self):
+        """The port's front end, ``cli.main`` in-process on the card at full
+        width (the JAX CLI's defaults, waveforminversionust_tpu/cli.py:
+        463-697), each subcommand with no ``--device`` (the card): simulate
+        (801^2 / 0.3 mm, 256 elements, 350 kHz, seed 0) into a .mat; qc on
+        it; run (301^2 / 0.8 mm, cg, 10 iterations from 1480 m/s) with
+        ``--out`` held against invert_dataset called directly with the same
+        configuration (losses and velocity to the last bit); run
+        ``--iterations 2 --profile``; run ``--method lbfgs --iterations
+        2``; timedomain, broadband and broadband3d at their defaults with
+        ``--iterations 1``; ``--plot`` wherever matplotlib is installed.
+        Then, through invert_dataset on simulate's data, the scan hybrids
+        (factor_schulz_steps=4, fast_sweeps=True, 2 iterations at 301^2: no
+        factor or sweep kernel) and the frozen factor at 601^2 / 0.4 mm
+        (refactor_every=2, 4 iterations); fast_sweeps=True alone against
+        factorization="thomas" (the stock plain sweeps) at 301^2 / 256
+        right-hand sides; the roofline of run's s/iter."""
+        import contextlib as ctx
+        import importlib.util
+        import io
+        import os
+        import re
+        import tempfile
+
+        import torch
+        from waveforminversionust_tpu_torch import cli
+        from waveforminversionust_tpu_torch.config import (FWIConfig,
+                                                           SolverConfig)
+        from waveforminversionust_tpu_torch.data import matio, timedomain
+        from waveforminversionust_tpu_torch.fwi import runner
+        from waveforminversionust_tpu_torch.models.grid import Grid2D
+        from waveforminversionust_tpu_torch.ops import (kernel_launch_counts,
+                                                        reset_kernel_launch_counts)
+        from waveforminversionust_tpu_torch.utils import flops
+
+        plot = importlib.util.find_spec("matplotlib") is not None
+        if not plot:
+            log(" matplotlib is not installed here: no --plot (the CPU tests "
+                "render every figure, tests/test_torch_viz.py, "
+                "tests/test_torch_cli.py)")
+        phase_counts = dict.fromkeys(KERNELS, 0)
+        out = self.slices["cli"] = {}
+
+        def count(counts):
+            for k in KERNELS:
+                self.launches[k] += counts[k]
+                phase_counts[k] += counts[k]
+
+        def main(name, argv):
+            """cli.main(argv) with its standard output captured and echoed:
+            (output, seconds, launch counts)."""
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_kernel_launch_counts()
+            t0 = time.perf_counter()
+            with ctx.redirect_stdout(buf):
+                cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = kernel_launch_counts()
+            count(counts)
+            shown = " ".join(os.path.basename(a) for a in argv)
+            log(f" wiust-torch {shown}: {secs:.3f} s; launches {counts}")
+            for line in buf.getvalue().splitlines():
+                log(f"   | {line}")
+            out[name] = dict(seconds=secs, launches=counts)
+            return buf.getvalue(), secs, counts
+
+        def losses(text):
+            found = re.findall(r"loss history: \[([^\]]*)\]", text)
+            self.check(found, "no loss history printed")
+            return np.array([float(v) for v in found[-1].split()])
+
+        def direct(ds, n_iter, **kw):
+            """invert_dataset on ds (the CLI's run defaults otherwise):
+            (result, s/iter, launch counts)."""
+            torch.cuda.synchronize()
+            reset_kernel_launch_counts()
+            t0 = time.perf_counter()
+            res = runner.invert_dataset(ds, fwi=FWIConfig(num_iterations=n_iter),
+                                        **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = kernel_launch_counts()
+            count(counts)
+            return res, secs / n_iter, counts
+
+        others = [k for k in KERNELS if k not in ("factor", "sweep", "stencil")]
+        with tempfile.TemporaryDirectory(prefix="wiust_cli_") as tmp:
+            data = os.path.join(tmp, "sim.mat")
+            _, sim_s, sim_counts = main("simulate", ["simulate", data])
+            ds = matio.load_recorded_dataset(data)
+            self.check(ds.rec_data.shape == (256, 256)
+                       and np.all(np.isfinite(ds.rec_data))
+                       and ds.c.shape == (801, 801),
+                       f"simulate wrote {ds.rec_data.shape}, {ds.c.shape}")
+
+            qc_out = os.path.join(tmp, "qc.mat")
+            text, _, _ = main("qc", ["qc", data, "--out", qc_out])
+            m = re.search(r"raw ([\d.eE+-]+) -> compensated ([\d.eE+-]+)", text)
+            self.check(m and float(m.group(2)) < 0.1 * float(m.group(1))
+                       and matio.load_mat(qc_out)["REC_DATA"].shape == (256, 256),
+                       "qc: asymmetry not compensated or no file")
+
+            # run at its defaults, the invert_dataset call timed inside it
+            inner = []
+            real = runner.invert_dataset
+
+            def timed_run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = real(*a, **k)
+                torch.cuda.synchronize()
+                inner.append(time.perf_counter() - t0)
+                return res
+
+            run_mat = os.path.join(tmp, "x.mat")
+            argv = ["run", data, "--out", run_mat]
+            if plot:
+                argv += ["--plot", os.path.join(tmp, "rec.png")]
+            with mock.patch.object(runner, "invert_dataset", timed_run):
+                text, run_s, run_counts = main("run", argv)
+            got = matio.load_mat(run_mat)
+            loss = got["loss"].ravel()
+            s_iter = inner[0] / N_ITER
+            grid = runner.default_inversion_grid()
+            true_grid = Grid2D.from_arrays(ds.x, ds.y)
+            rmse0 = runner.reconstruction_rmse(np.full(grid.shape, 1480.0),
+                                               grid, ds.c, true_grid)
+            rmse = runner.reconstruction_rmse(got["VEL_F"], grid, ds.c,
+                                              true_grid)
+            res, s_iter_direct, direct_counts = direct(ds, N_ITER)
+            same = (np.array_equal(res.metrics["loss"].astype(np.float64), loss)
+                    and np.array_equal(res.velocity.astype(np.float64),
+                                       got["VEL_F"]))
+            log(f" run: {s_iter:.6f} s/iter inside the CLI (host clock, "
+                f"synchronised; {run_s:.3f} s the whole command), direct "
+                f"invert_dataset {s_iter_direct:.6f} s/iter; loss "
+                f"{loss.tolist()}; rmse start {rmse0:.4f} end {rmse:.4f} m/s; "
+                f"equal to the direct call to the last bit: {same}")
+            out["run"].update(s_per_iter=s_iter, s_per_iter_direct=s_iter_direct,
+                              loss=loss.tolist(), rmse_start=rmse0,
+                              rmse_end=rmse, direct_launches=direct_counts)
+            self.check(same, "run's .mat differs from the direct "
+                             "invert_dataset call")
+            self.check(np.all(np.isfinite(loss)) and loss[-1] < loss[0],
+                       f"run losses {loss}")
+            self.check(rmse < rmse0, f"run rmse {rmse0} -> {rmse}")
+            # run at its defaults refactors every iteration and refines
+            # nothing (SolverConfig(): refactor_every=1, refine=0), as the
+            # JAX CLI's run does: the stencil kernel is not on its path
+            self.check(run_counts["factor"] > 0 and run_counts["sweep"] > 0
+                       and all(run_counts[k] == 0 for k in others),
+                       f"run launches {run_counts}")
+
+            prof = os.path.join(tmp, "prof")
+            _, _, prof_counts = main("run_profile", ["run", data, "--iterations",
+                                                     "2", "--profile", prof])
+            trace = open(os.path.join(prof, "trace.json")).read()
+            names = {"factor": ("build_s", "pivot_gj", "panel_update"),
+                     "sweep": ("sweep_cluster",),
+                     "stencil": ("stencil9_kernel",)}
+            named = {k: all(n in trace for n in v) for k, v in names.items()}
+            log(f" profile trace {len(trace) / 1e6:.1f} MB; names the device "
+                f"functions of {[k for k, v in named.items() if v]}")
+            self.check(all(named[k] == (prof_counts[k] > 0) for k in names)
+                       and named["factor"] and named["sweep"],
+                       f"trace names {named} against launches {prof_counts}")
+
+            text, _, lb_counts = main("run_lbfgs", ["run", data, "--method",
+                                                    "lbfgs", "--iterations", "2"])
+            lb_loss = losses(text)
+            self.check(lb_loss.size == 2 and np.all(np.isfinite(lb_loss)),
+                       f"lbfgs losses {lb_loss}")
+
+            fields = []
+            argv = ["timedomain"]
+            if plot:
+                argv += ["--plot", os.path.join(tmp, "td.png")]
+            with self.recorded(timedomain, "simulate_time_domain", fields,
+                               lambda r: r):
+                main("timedomain", argv)
+            td = fields[0]
+            self.check(tuple(td.wavefields_t.shape) == (501, 241, 241)
+                       and bool(torch.isfinite(td.wavefields_t).all())
+                       and np.all(np.isfinite(td.channel_data)),
+                       "timedomain fields not finite")
+
+            argv = ["broadband", "--iterations", "1"]
+            if plot:
+                argv += ["--plot", os.path.join(tmp, "bb.png")]
+            text, _, _ = main("broadband", argv)
+            bb_loss = losses(text)
+            self.check(bb_loss.size == 3 and np.all(np.isfinite(bb_loss)),
+                       f"broadband losses {bb_loss}")
+
+            vol = os.path.join(tmp, "vol.npy")
+            argv = ["broadband3d", "--iterations", "1", "--out", vol]
+            if plot:
+                argv += ["--plot", os.path.join(tmp, "bb3.png")]
+            text, _, _ = main("broadband3d", argv)
+            b3_loss = losses(text)
+            v = np.load(vol)
+            self.check(b3_loss.size == 3 and np.all(np.isfinite(b3_loss))
+                       and v.shape == (65, 65, 65) and np.all(np.isfinite(v)),
+                       f"broadband3d losses {b3_loss}, volume {v.shape}")
+
+        # the scan hybrids at 301^2: the plain block-Thomas factor with
+        # warm-started Schulz rows and the precomputed sweep operators
+        hyb, hyb_s, hyb_counts = direct(
+            ds, 2, solver=SolverConfig(factor_schulz_steps=4, fast_sweeps=True))
+        hyb_loss = hyb.metrics["loss"]
+        log(f" scan hybrids (factor_schulz_steps=4, fast_sweeps=True), 2 "
+            f"iterations: {hyb_s:.4f} s/iter, loss {hyb_loss.tolist()} (the "
+            f"kernel path's {loss[:2].tolist()}); launches {hyb_counts}")
+        out["hybrids"] = dict(s_per_iter=hyb_s, loss=hyb_loss.tolist(),
+                              launches=hyb_counts)
+        self.check(all(n == 0 for n in hyb_counts.values())
+                   and np.allclose(hyb_loss, loss[:2], rtol=GOLDEN["loss"],
+                                   atol=0),
+                   f"hybrids: launches {hyb_counts}, losses {hyb_loss}")
+
+        self.fast_sweeps_ab()
+
+        # the frozen factor at 601^2: the whole stale factor reused
+        g601 = Grid2D.centered(120e-3, 0.4e-3)
+        fz, fz_s, fz_counts = direct(ds, 4, grid=g601,
+                                     solver=SolverConfig(refactor_every=2))
+        fz_loss = fz.metrics["loss"]
+        log(f" frozen factor at {g601.nx}^2 (refactor_every=2), 4 iterations: "
+            f"{fz_s:.4f} s/iter, loss {fz_loss.tolist()}, velocity "
+            f"{float(fz.velocity.min()):.2f}..{float(fz.velocity.max()):.2f} "
+            f"m/s; launches {fz_counts}")
+        out["frozen_601"] = dict(s_per_iter=fz_s, loss=fz_loss.tolist(),
+                                 launches=fz_counts)
+        self.check(np.all(np.isfinite(fz_loss)) and np.all(np.isfinite(fz.velocity))
+                   and fz_counts["stencil"] > 0 and fz_loss[-1] < fz_loss[0],
+                   f"601^2 frozen factor: losses {fz_loss}, launches {fz_counts}")
+
+        # run's s/iter in the CLI (its first run at this size) and in the
+        # direct call after it (the same computation, warm)
+        spec = flops.chip_spec(0)
+        cost = flops.fwi_iteration_cost(301, 301, 256)
+        roof = {}
+        for name, t in (("cli", s_iter), ("direct", s_iter_direct)):
+            roof[name] = flops.roofline(cost, t, "highest", spec)
+            log(f" roofline of run's {t:.6f} s/iter ({name}) against "
+                f"fwi_iteration_cost(301, 301, 256): {json.dumps(roof[name])}")
+        out.update(simulate_s=sim_s, simulate_launches=sim_counts,
+                   roofline=roof, launches=phase_counts)
+        log(f" cli phase launches {phase_counts}")
+        self.check(all(phase_counts[k] > 0 for k in ("factor", "sweep", "stencil"))
+                   and all(phase_counts[k] == 0 for k in others),
+                   f"cli phase launches {phase_counts}")
+
+    def fast_sweeps_ab(self):
+        """fast_sweeps=True alone (the plain factor, then the precomputed
+        sweep operators) against factorization="thomas" (the plain factor
+        and the stock plain sweeps), both without a kernel, on the main
+        path's 301^2 operator and its 256 sources: the operator's build,
+        the forward and adjoint solves, the operators' own cost, and the
+        forward-adjoint pairs per factor that pay for it. The kernel engine's operator ("auto") beside
+        them for scale."""
+        import torch
+        from waveforminversionust_tpu_torch.config import SolverConfig
+        from waveforminversionust_tpu_torch.ops import (banded,
+                                                        kernel_launch_counts,
+                                                        reset_kernel_launch_counts,
+                                                        solve)
+
+        grid, data, vel0 = self._setup()
+        ab, sols = {}, {}
+        for name, cfg in (("thomas", SolverConfig(factorization="thomas")),
+                          ("fast_sweeps", SolverConfig(fast_sweeps=True)),
+                          ("kernels", SolverConfig())):
+            reset_kernel_launch_counts()
+            op, build_ms = host_timed(
+                lambda: solve.make_helmholtz_operator(vel0, data.f, grid, cfg))
+            row = dict(build_ms=build_ms)
+            for adjoint in (False, True):
+                x, ms = timed(lambda: solve.helmholtz_operator_solve(
+                    op, data.src, grid, cfg, adjoint=adjoint), 3)
+                key = "adjoint" if adjoint else "forward"
+                row[f"{key}_ms"] = ms
+                sols[name, key] = x
+            row["launches"] = {k: n for k, n in kernel_launch_counts().items()
+                               if n}
+            if name == "thomas":  # the operators' own cost, warm
+                for _ in range(2):
+                    _, row["prepare_sweep_ops_ms"] = host_timed(
+                        lambda: banded.prepare_sweep_ops(op.factor))
+            ab[name] = row
+            del op
+        torch.cuda.empty_cache()
+        for key in ("forward", "adjoint"):
+            ab[f"rel_err_{key}"] = rel_err(sols["fast_sweeps", key],
+                                           sols["thomas", key])
+        saved = sum(ab["thomas"][f"{k}_ms"] - ab["fast_sweeps"][f"{k}_ms"]
+                    for k in ("forward", "adjoint"))
+        ab["pairs_to_pay_back"] = (ab["thomas"]["prepare_sweep_ops_ms"] / saved
+                                   if saved > 0 else None)
+        log(f" fast_sweeps=True alone against factorization='thomas' at "
+            f"{grid.ny}^2 / {data.src.shape[0]} right-hand sides: "
+            f"{json.dumps(ab)}")
+        self.slices["cli"]["fast_sweeps_ab"] = ab
+        self.check(all(ab[f"rel_err_{k}"] < 1e-4 for k in ("forward", "adjoint"))
+                   and not ab["thomas"]["launches"]
+                   and not ab["fast_sweeps"]["launches"],
+                   f"fast sweeps A/B: {ab}")
+
+    # -- phase 20 -------------------------------------------------------
     def profile(self):
         """torch.profiler over 2 iterations (one factored, one stale) of
         each engine, and over one two-cycle GMRES forward solve (one- and
@@ -2615,8 +2937,8 @@ def nvidia_smi(query="name,power.limit") -> str:
 SLICES = ("slice", "slice_twisted", "slice_cr")
 PATHS = SLICES + ("parity", "intake", "runner", "lbfgs", "gn", "multifreq",
                   "gmres", "born", "broadband", "traveltime", "profile")
-# the 3D phases need no 2D data
-VOLUMES = ("fwi3d", "broadband3d", "traveltime3d", "methods3d")
+# the 3D phases and the CLI (which makes its own data) need no 2D data
+VOLUMES = ("fwi3d", "broadband3d", "traveltime3d", "methods3d", "cli")
 
 
 def main(argv=None) -> int:
@@ -2625,11 +2947,12 @@ def main(argv=None) -> int:
                     default="kernels,data,slice,slice_twisted,slice_cr,"
                             "parity,intake,runner,lbfgs,gn,multifreq,gmres,"
                             "born,broadband,traveltime,fwi3d,broadband3d,"
-                            "traveltime3d,methods3d",
+                            "traveltime3d,methods3d,cli",
                     help="comma-separated subset of kernels,data,slice,"
                          "slice_twisted,slice_cr,parity,intake,runner,lbfgs,"
                          "gn,multifreq,gmres,born,broadband,traveltime,"
-                         "fwi3d,broadband3d,traveltime3d,methods3d,profile")
+                         "fwi3d,broadband3d,traveltime3d,methods3d,cli,"
+                         "profile")
     args = ap.parse_args(argv)
 
     import torch

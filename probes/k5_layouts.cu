@@ -21,7 +21,7 @@
 
 #include <utility>
 
-#include "../csrc/inv.cu"
+#include "../waveforminversionust_tpu_torch/csrc/inv.cu"
 
 namespace {
 

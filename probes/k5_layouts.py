@@ -2,7 +2,7 @@
 """Time K5 (``csrc/inv.cu::batched_gj``, 8 warps a matrix in 4 x 4 register
 tiles) against the row layouts of ``k5_layouts.cu`` on one NVIDIA card.
 
-    python3 waveforminversionust_tpu_torch/probes/k5_layouts.py
+    python3 probes/k5_layouts.py
 
 The row layouts: warps owning rows, column j by ``__shfl_sync``, 4 or 8
 warps a matrix, one block barrier a step or an mbarrier a row, with or
@@ -30,7 +30,7 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-REPO = HERE.parent.parent
+REPO = HERE.parent
 # (warps, flags, ahead): the row layouts timed against K5
 LAYOUTS = [(w, f, a) for w in (8, 4) for f in (0, 1) for a in (0, 1)]
 # The batches a 301^2 cyclic factorization inverts (a level's odd rows, then

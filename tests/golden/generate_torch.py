@@ -6,6 +6,8 @@ tests hold their methods and solvers against:
     python tests/golden/generate_torch.py 3d         # torch_3d.npz
     python tests/golden/generate_torch.py traveltime # torch_traveltime.npz
     python tests/golden/generate_torch.py methods3d  # torch_methods3d.npz
+    python tests/golden/generate_torch.py cli        # torch_cli.npz
+    python tests/golden/generate_torch.py engines    # torch_engines.npz
 
 Each of those JAX functions compiles for 5-20 s on one CPU core, which the
 tests cannot afford one by one (each test module keeps one live JAX
@@ -44,6 +46,15 @@ and ring, the gradient of fwi_loss_3d (lossless, and lossy in both fields)
 at converged solves with a frozen shell, 2 iterations of 3D L-BFGS, one
 Gauss-Newton iteration, one of the attenuation and joint inversions over
 data with a Gaussian absorber, and the 3D background-speed calibration.
+
+torch_cli.npz (tests/test_torch_cli.py): the JAX CLI at tests/test_misc.py's
+tiny ring: simulate's dataset, the .mat exports of run (cg, gn,
+--qc-compensate, alpha; 2 iterations) and qc's compensated data.
+
+torch_engines.npz (tests/test_torch_engines.py): the twisted and
+cyclic-reduction references of that file (factors, solves, the fused
+twisted layout, the pivot and blocked inverses, solve_helmholtz and 3
+frozen-factor CG iterations through each engine, and the tiny ring's data).
 """
 
 import os
@@ -764,7 +775,245 @@ def main_methods3d():
     print(f"wrote {OUT_M3}: {len(out)} arrays")
 
 
+# -- the command-line interface (tests/test_torch_cli.py) -------------------
+
+OUT_CLI = os.path.join(os.path.dirname(__file__), "torch_cli.npz")
+# tests/test_misc.py's tiny ring widened from 12 to 24 mm: there the CLI's
+# default 9 mm PML covers the 9 mm ring, the data are ~1e-7 and CG does not
+# move. A 121^2 / 0.4 mm synthesis, 61^2 / 0.8 mm inversions, 16 elements on
+# a 12 mm ring at 200 kHz.
+CLI_SIMULATE = ["--xmax", "24e-3", "--dx", "0.4e-3", "--elements", "16",
+                "--radius", "12e-3", "--frequency", "200e3"]
+CLI_RUN = ["--iterations", "2", "--grid-xmax", "24e-3", "--grid-dx",
+           "0.8e-3", "--elements", "16", "--radius", "12e-3", "--exclude",
+           "2"]
+# run's variants held against the JAX CLI: name -> extra flags
+CLI_RUNS = {"cg": [], "gn": ["--method", "gn"],
+            "qc_compensate": ["--qc-compensate"],
+            "alpha": ["--method", "alpha"]}
+CLI_DATASET = ("REC_DATA", "C", "x", "y", "x_circ", "y_circ", "f")
+
+
+def main_cli():
+    """torch_cli.npz: the JAX CLI's outputs at the tiny ring: the
+    simulate dataset, each run variant's .mat export and qc's compensated
+    data."""
+    import tempfile
+
+    from waveforminversionust_tpu.cli import main as cli
+    from waveforminversionust_tpu.data.matio import load_mat
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "tiny.mat")
+        cli(["simulate", data] + CLI_SIMULATE)
+        out.update({f"sim_{k}": v for k, v in load_mat(data).items()})
+        for name, extra in CLI_RUNS.items():
+            path = os.path.join(tmp, f"{name}.mat")
+            cli(["run", data, "--out", path] + CLI_RUN + extra)
+            out.update({f"{name}_{k}": v for k, v in load_mat(path).items()})
+        path = os.path.join(tmp, "qc.mat")
+        cli(["qc", data, "--out", path])
+        out["qc_REC_DATA"] = load_mat(path)["REC_DATA"]
+    np.savez_compressed(OUT_CLI, **{k: np.asarray(v) for k, v in out.items()})
+    print(f"wrote {OUT_CLI}: {len(out)} arrays")
+
+
+# -- the opt-in direct engines (tests/test_torch_engines.py) ---------------
+
+OUT_ENGINES = os.path.join(os.path.dirname(__file__), "torch_engines.npz")
+EN_F = 350e3
+EN_TWISTED = [(12, 9, None), (13, 9, None), (13, 9, 3), (13, 9, 11),
+              (12, 9, 1)]                  # (ny, nx, middle row)
+EN_PIVOT = [16, 40]                        # pivot block widths
+EN_BATCHED = [(16, 16), (40, 16), (40, 32), (70, 16), (70, 32)]
+EN_CR = [1, 2, 7, 12, 13]                  # cyclic reduction heights
+EN_EXTENT = 16e-3                          # 41x41 at 0.8 mm
+EN_PML = dict(l_pml=3.2e-3)
+EN_TINY_F = 300e3
+EN_TINY_ACQ = dict(num_elements=8, radius=12e-3, num_excluded_each_side=1)
+
+
+def en_cplx(rng, shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def en_random_planes(ny, nx, seed=0, diag_boost=4.0):
+    """The well-conditioned random planes of tests/test_twisted.py."""
+    rng = np.random.default_rng(seed)
+
+    def part():
+        a = rng.standard_normal((9, ny, nx)).astype(np.float32)
+        a[0] += diag_boost * np.sign(a[0]) + 2 * diag_boost
+        return a
+
+    return (part() + 0.5j * part()).astype(np.complex64)
+
+
+def en_random_batch(rng, batch, n, diag_boost=2.0):
+    a = en_cplx(rng, (batch, n, n)) / np.sqrt(n) + diag_boost * np.eye(n)
+    return a.astype(np.complex64)
+
+
+def en_cr_planes(rng, ny, nx):
+    """The random planes of tests/test_cyclic.py: structural zeros on the
+    border and a dominant centre."""
+    c = en_cplx(rng, (9, ny, nx))
+    c[0] += 6.0
+    for s in range(1, 9):
+        c[s, 0, :] = c[s, -1, :] = 0
+        c[s, :, 0] = c[s, :, -1] = 0
+    return c
+
+
+def en_twisted_case(ny, nx, m):
+    """(planes, right-hand sides) of a twisted case."""
+    return (en_random_planes(ny, nx),
+            en_cplx(np.random.default_rng(1), (3, ny, nx)))
+
+
+def en_cr_case(ny, nx=8):
+    rng = np.random.default_rng(6)
+    planes = en_cr_planes(rng, ny, nx)
+    return planes, en_cplx(rng, (3, ny, nx))
+
+
+def en_twisted_reference(planes, b, m):
+    """The JAX twisted factor and its forward and adjoint solves."""
+    from waveforminversionust_tpu.ops import cpx
+    from waveforminversionust_tpu.ops.twisted import (twisted_factor_cpx,
+                                                      twisted_solve_cpx)
+
+    @jax.jit
+    def reference(c, rhs):
+        jfac = twisted_factor_cpx(c, m=m)
+        return jfac, [twisted_solve_cpx(jfac, rhs, adjoint=a)
+                      for a in (False, True)]
+
+    return reference(cpx.of(planes), cpx.of(b))
+
+
+def en_cr_reference(planes, b):
+    """The JAX cyclic-reduction factor and its two solves."""
+    from waveforminversionust_tpu.ops import cpx
+    from waveforminversionust_tpu.ops.cyclic import cr_factor_cpx, cr_solve_cpx
+
+    @jax.jit
+    def reference(c, rhs):
+        jfac = cr_factor_cpx(c, block=8)
+        return jfac, [cr_solve_cpx(jfac, rhs, adjoint=a)
+                      for a in (False, True)]
+
+    return reference(cpx.of(planes), cpx.of(b))
+
+
+def _np_cpx(c):
+    from waveforminversionust_tpu.ops import cpx
+    return cpx.to_numpy(c)
+
+
+def en_tiny_ring():
+    """The 41x41 grid and 8-element ring of tests/test_torch_fwi.py, data
+    synthesized by the JAX package."""
+    grid = Grid2D.centered(EN_EXTENT, 0.8e-3)
+    vel = smooth_blob_phantom(grid, radius=6e-3, dc=40, c_bkgnd=1500.0)
+    solver = SolverConfig(split_complex=True, pml=PMLConfig(**EN_PML))
+    ds = synthesize_ring_dataset(vel, grid, AcquisitionConfig(**EN_TINY_ACQ),
+                                 f=EN_TINY_F, seed=3, solver=solver)
+    return grid, solver, ds
+
+
+def main_engines():
+    """torch_engines.npz: twisted factors and solves (the oracle and the
+    Pallas kernel's block-step layout in interpret mode), the pivot and
+    blocked batched inverses, cyclic reduction level by level, both
+    engines' solve_helmholtz and 3 frozen-factor CG iterations on the tiny
+    ring, with that ring's data."""
+    import dataclasses
+
+    from waveforminversionust_tpu.fwi import optimizers
+    from waveforminversionust_tpu.ops import batched_inv, cpx
+    from waveforminversionust_tpu.ops.pallas_inv import \
+        batched_small_inv_pallas
+    from waveforminversionust_tpu.ops.pallas_twisted import \
+        twisted_factor_pallas
+    from waveforminversionust_tpu.ops.solve import solve_helmholtz
+    from waveforminversionust_tpu.ops.twisted import twisted_factor_cpx
+
+    out = {}
+    for ny, nx, m in EN_TWISTED:
+        key = f"tw_{ny}_{nx}_{m}"
+        jfac, refs = en_twisted_reference(*en_twisted_case(ny, nx, m), m)
+        out[f"{key}_m"] = jfac.m
+        out[f"{key}_g"] = _np_cpx(jfac.g)
+        out[f"{key}_fwd"], out[f"{key}_adj"] = map(_np_cpx, refs)
+    for ny in (12, 13):
+        jplanes = cpx.of(en_random_planes(ny, 9, seed=5))
+        ref = twisted_factor_cpx(jplanes)
+        fused = twisted_factor_pallas(jplanes, interpret=True)
+        out.update({f"lay_{ny}_m": ref.m, f"lay_{ny}_g": _np_cpx(ref.g),
+                    f"lay_{ny}_fused_m": fused.m,
+                    f"lay_{ny}_g_down": _np_cpx(fused.g_down),
+                    f"lay_{ny}_g_up": _np_cpx(fused.g_up)})
+    for b in EN_PIVOT:
+        ja = cpx.of(jnp.asarray(en_random_batch(np.random.default_rng(3), 6,
+                                                b)))
+        out[f"piv_{b}_pallas"] = _np_cpx(batched_small_inv_pallas(
+            ja, interpret=True))
+        out[f"piv_{b}_xla"] = _np_cpx(batched_inv._batched_pivot_inv(ja))
+    for n, block in EN_BATCHED:
+        a = en_random_batch(np.random.default_rng(4), 5, n)
+        out[f"inv_{n}_{block}"] = _np_cpx(batched_inv.batched_inv(
+            cpx.of(jnp.asarray(a)), block=block, pivot="xla"))
+    for ny in EN_CR:
+        jfac, refs = en_cr_reference(*en_cr_case(ny))
+        out[f"cr_{ny}_levels"] = len(jfac.levels)
+        for i, lev in enumerate(jfac.levels):
+            for j, part in enumerate(lev):
+                out[f"cr_{ny}_lev{i}_{j}"] = _np_cpx(part)
+        out[f"cr_{ny}_dinv_root"] = _np_cpx(jfac.dinv_root)
+        out[f"cr_{ny}_fwd"], out[f"cr_{ny}_adj"] = map(_np_cpx, refs)
+    grid = Grid2D.centered(EN_EXTENT, 0.8e-3)
+    vel = smooth_blob_phantom(grid, radius=EN_EXTENT / 3, dc=60)
+    src = en_cplx(np.random.default_rng(7), (2,) + grid.shape)
+    for engine in ("twisted", "cr"):
+        cfg = SolverConfig(split_complex=True, factorization=engine,
+                           pml=PMLConfig(**EN_PML))
+
+        def reference(v, s):
+            return [solve_helmholtz(v, s, jnp.float32(EN_F), grid, cfg,
+                                    adjoint=a)[0] for a in (False, True)]
+
+        # op by op for twisted: see test_solve_helmholtz_engines_match_jax
+        if engine == "cr":
+            reference = jax.jit(reference)
+        refs = reference(jnp.asarray(vel), cpx.of(src))
+        out[f"solve_{engine}_fwd"], out[f"solve_{engine}_adj"] = \
+            map(_np_cpx, refs)
+    tgrid, solver, ds = en_tiny_ring()
+    out.update({f"ring_{k}": np.asarray(getattr(ds, k))
+                for k in ("x", "y", "c", "x_circ", "y_circ", "f",
+                          "rec_data")})
+    acq = build_ring_acquisition(tgrid, AcquisitionConfig(**EN_TINY_ACQ),
+                                 x_elem=ds.x_circ, y_elem=ds.y_circ)
+    data = objective.build_fwi_data(acq, ds.rec_data, EN_TINY_F, split=True)
+    for engine in ("twisted", "cr"):
+        res = optimizers.nonlinear_cg(
+            jnp.full(tgrid.shape, 1500.0, jnp.float32), data, tgrid,
+            dataclasses.replace(solver, refactor_every=2,
+                                factorization=engine),
+            FWIConfig(num_iterations=3))
+        out.update({f"cg_{engine}_loss": res.metrics.loss,
+                    f"cg_{engine}_step_size": res.metrics.step_size,
+                    f"cg_{engine}_velocity": res.velocity})
+    np.savez_compressed(OUT_ENGINES, **{k: np.asarray(v)
+                                        for k, v in out.items()})
+    print(f"wrote {OUT_ENGINES}: {len(out)} arrays")
+
+
 if __name__ == "__main__":
     commands = {"solvers": main_solvers, "3d": main_3d,
-                "traveltime": main_traveltime, "methods3d": main_methods3d}
+                "traveltime": main_traveltime, "methods3d": main_methods3d,
+                "cli": main_cli, "engines": main_engines}
     commands[sys.argv[1]]() if sys.argv[1:] else main()

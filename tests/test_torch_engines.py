@@ -1,43 +1,28 @@
 """The port's opt-in direct engines (twisted, cyclic reduction) held against
 the JAX package on the CPU.
 
-Inputs are made with numpy from a seed and fed to both packages (the port
-through ``interop``). Where the JAX side has a Pallas kernel it runs in
-interpret mode, as tests/test_twisted.py and tests/test_batched_inv.py run
-it. On CPU tensors the port's wrappers take their plain versions; the CUDA
-kernels are held against those on a card (tests/test_torch_kernels.py).
-The JAX side of each comparison runs under one ``jax.jit``: compiling a
-reference call whole is several times quicker here than dispatching its
-hundreds of small ops one by one.
+Inputs are made with numpy from a seed (the input functions of
+tests/golden/generate_torch.py) and fed to both packages (the port through
+``interop``). Where the JAX side has a Pallas kernel it ran in interpret
+mode, as tests/test_twisted.py and tests/test_batched_inv.py run it. On CPU
+tensors the port's wrappers take their plain versions; the CUDA kernels are
+held against those on a card (tests/test_torch_kernels.py).
+
+The JAX results come from tests/golden/torch_engines.npz (``python
+tests/golden/generate_torch.py engines``), but for one live comparison an
+engine: ``test_twisted_matches_jax[12-9-1]`` and ``test_cr_matches_jax[2]``
+run the JAX package here, each reference call under one ``jax.jit``.
 """
 
 import dataclasses
+import importlib.util
+import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from waveforminversionust_tpu import (AcquisitionConfig as JAcq,
-                                      FWIConfig as JFWI, Grid2D as JGrid,
-                                      PMLConfig as JPML,
-                                      SolverConfig as JSolver)
-from waveforminversionust_tpu.data.synthesize import \
-    synthesize_ring_dataset as jsynthesize
-from waveforminversionust_tpu.fwi import objective as jobj
-from waveforminversionust_tpu.fwi import optimizers as jopt
-from waveforminversionust_tpu.models.acquisition import \
-    build_ring_acquisition as jbuild_acq
 from waveforminversionust_tpu.models.phantom import smooth_blob_phantom
-from waveforminversionust_tpu.ops import batched_inv as jinv
-from waveforminversionust_tpu.ops import cpx
-from waveforminversionust_tpu.ops import solve as jsolve
-from waveforminversionust_tpu.ops.cyclic import cr_factor_cpx, cr_solve_cpx
-from waveforminversionust_tpu.ops.pallas_inv import batched_small_inv_pallas
-from waveforminversionust_tpu.ops.pallas_twisted import twisted_factor_pallas
-from waveforminversionust_tpu.ops.twisted import (twisted_factor_cpx,
-                                                  twisted_solve_cpx)
 from waveforminversionust_tpu_torch import interop
 from waveforminversionust_tpu_torch.config import (AcquisitionConfig,
                                                    FWIConfig, PMLConfig,
@@ -53,7 +38,28 @@ from waveforminversionust_tpu_torch.ops import solve as tsolve
 from waveforminversionust_tpu_torch.ops import twisted
 from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
 
-F = 350e3
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+
+
+def _load_generator():
+    spec = importlib.util.spec_from_file_location(
+        "generate_torch", os.path.join(GOLDEN, "generate_torch.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    return gen
+
+
+GEN = _load_generator()
+F = GEN.EN_F
+LIVE_TWISTED = (12, 9, 1)   # the live JAX comparison of each engine
+LIVE_CR = 2
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's outputs (tests/golden/generate_torch.py
+    engines)."""
+    return np.load(os.path.join(GOLDEN, "torch_engines.npz"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,17 +74,17 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _cplx(rng, shape):
-    return (rng.standard_normal(shape)
-            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+_cplx = GEN.en_cplx
 
 
 def _t(z):
     return interop.complex_tensor(np.asarray(z))
 
 
-def _pair(c):
-    return np.asarray(c.re), np.asarray(c.im)
+def _pair(z):
+    """A complex array as the (re, im) float32 pair interop takes."""
+    z = np.asarray(z)
+    return z.real.astype(np.float32), z.imag.astype(np.float32)
 
 
 def _max_rel(a, b):
@@ -89,43 +95,33 @@ def _fro_rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _random_planes(ny, nx, seed=0, diag_boost=4.0):
-    """The well-conditioned random planes of tests/test_twisted.py."""
-    rng = np.random.default_rng(seed)
-
-    def part():
-        a = rng.standard_normal((9, ny, nx)).astype(np.float32)
-        a[0] += diag_boost * np.sign(a[0]) + 2 * diag_boost
-        return a
-
-    return (part() + 0.5j * part()).astype(np.complex64)
+_random_planes = GEN.en_random_planes
 
 
 # -- twisted ---------------------------------------------------------------
 
-@pytest.mark.parametrize("ny,nx,m", [(12, 9, None), (13, 9, None), (13, 9, 3),
-                                     (13, 9, 11), (12, 9, 1)])
-def test_twisted_matches_jax(ny, nx, m):
+@pytest.mark.parametrize("ny,nx,m", GEN.EN_TWISTED)
+def test_twisted_matches_jax(ref, ny, nx, m):
     """Plain twisted factor and solves == twisted_factor_cpx /
     twisted_solve_cpx on the same random planes, every middle row the
     reference tests, forward and adjoint: max-rel 5e-5 (its own bound
-    against block-Thomas)."""
-    planes = _random_planes(ny, nx)
-    b = _cplx(np.random.default_rng(1), (3, ny, nx))
-
-    @jax.jit
-    def reference(c, rhs):
-        jfac = twisted_factor_cpx(c, m=m)
-        return jfac, [twisted_solve_cpx(jfac, rhs, adjoint=a)
-                      for a in (False, True)]
-
-    jfac, refs = reference(cpx.of(planes), cpx.of(b))
+    against block-Thomas). LIVE_TWISTED runs the JAX package here."""
+    planes, b = GEN.en_twisted_case(ny, nx, m)
+    if (ny, nx, m) == LIVE_TWISTED:
+        from waveforminversionust_tpu.ops import cpx
+        jfac, refs = GEN.en_twisted_reference(planes, b, m)
+        m_ref, g_ref = jfac.m, cpx.to_numpy(jfac.g)
+        refs = [cpx.to_numpy(r) for r in refs]
+    else:
+        key = f"tw_{ny}_{nx}_{m}"
+        m_ref, g_ref = int(ref[f"{key}_m"]), ref[f"{key}_g"]
+        refs = [ref[f"{key}_fwd"], ref[f"{key}_adj"]]
     fac = twisted.twisted_factor(_t(planes), m)
-    assert fac.m == jfac.m
-    assert _max_rel(fac.g.numpy(), cpx.to_numpy(jfac.g)) < 5e-5
-    for adjoint, ref in zip((False, True), refs):
+    assert fac.m == m_ref
+    assert _max_rel(fac.g.numpy(), g_ref) < 5e-5
+    for adjoint, want in zip((False, True), refs):
         out = twisted.twisted_solve(fac, _t(b), adjoint).numpy()
-        assert _max_rel(out, cpx.to_numpy(ref)) < 5e-5, adjoint
+        assert _max_rel(out, want) < 5e-5, adjoint
 
 
 def test_twisted_rejects_middle_rows_out_of_range():
@@ -155,21 +151,21 @@ def test_twisted_residual_helmholtz(adjoint):
 
 
 @pytest.mark.parametrize("ny", [12, 13])
-def test_interop_twisted_factor_layouts(ny):
+def test_interop_twisted_factor_layouts(ref, ny):
     """interop.twisted_factor from the fused kernel's g_down / g_up
     block-step layout (interpret mode; padded to the panel width) == the
     one from the oracle's row-ordered g, and both solve like the port's own
     factor: 5e-5."""
     nx = 9
     planes = _random_planes(ny, nx, seed=5)
-    jplanes = cpx.of(planes)
-    ref = twisted_factor_cpx(jplanes)
-    fused = twisted_factor_pallas(jplanes, interpret=True)
-    assert fused.g is None and fused.g_down.re.shape[-1] > nx
-    rows = interop.twisted_factor(*_pair(jplanes), ref.m, g=_pair(ref.g))
-    steps = interop.twisted_factor(*_pair(jplanes), fused.m,
-                                   g_down=_pair(fused.g_down),
-                                   g_up=_pair(fused.g_up))
+    key = f"lay_{ny}"
+    g_down = ref[f"{key}_g_down"]
+    assert g_down.shape[-1] > nx
+    rows = interop.twisted_factor(*_pair(planes), int(ref[f"{key}_m"]),
+                                  g=_pair(ref[f"{key}_g"]))
+    steps = interop.twisted_factor(*_pair(planes), int(ref[f"{key}_fused_m"]),
+                                   g_down=_pair(g_down),
+                                   g_up=_pair(ref[f"{key}_g_up"]))
     assert rows.m == steps.m == twisted.middle_row(ny)
     assert steps.g.shape == rows.g.shape == (ny, nx, nx)
     for y in range(ny):
@@ -181,9 +177,7 @@ def test_interop_twisted_factor_layouts(ny):
 
 # -- batched inverse -------------------------------------------------------
 
-def _random_batch(rng, batch, n, diag_boost=2.0):
-    a = _cplx(rng, (batch, n, n)) / np.sqrt(n) + diag_boost * np.eye(n)
-    return a.astype(np.complex64)
+_random_batch = GEN.en_random_batch
 
 
 def _batch_rel(got, want):
@@ -192,8 +186,8 @@ def _batch_rel(got, want):
                   / np.linalg.norm(want.reshape(n, -1), axis=1)).max())
 
 
-@pytest.mark.parametrize("b", [16, 40])
-def test_pivot_inverse_matches_jax(b):
+@pytest.mark.parametrize("b", GEN.EN_PIVOT)
+def test_pivot_inverse_matches_jax(ref, b):
     """_batched_pivot_inv (K5's plain version) == the Pallas kernel in
     interpret mode, the XLA pivot loop and numpy complex128: 5e-5; and a
     Dirichlet-scale pivot (1.5625e6) is inverted without cancellation."""
@@ -201,18 +195,15 @@ def test_pivot_inverse_matches_jax(b):
     out = batched_inv._batched_pivot_inv(_t(a)).numpy()
     want = np.linalg.inv(a.astype(np.complex128))
     assert _batch_rel(out, want) < 5e-5
-    ja = cpx.of(jnp.asarray(a))
-    assert _batch_rel(out, cpx.to_numpy(
-        batched_small_inv_pallas(ja, interpret=True))) < 5e-5
-    assert _batch_rel(out, cpx.to_numpy(jinv._batched_pivot_inv(ja))) < 5e-5
+    assert _batch_rel(out, ref[f"piv_{b}_pallas"]) < 5e-5
+    assert _batch_rel(out, ref[f"piv_{b}_xla"]) < 5e-5
     d = (1.5625e6 * np.eye(b)).astype(np.complex64)[None]
     got = batched_inv._batched_pivot_inv(_t(d)).numpy()[0]
     np.testing.assert_allclose(got, np.eye(b) / 1.5625e6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("n,block", [(16, 16), (40, 16), (40, 32), (70, 16),
-                                     (70, 32)])
-def test_batched_inv_matches_jax(n, block):
+@pytest.mark.parametrize("n,block", GEN.EN_BATCHED)
+def test_batched_inv_matches_jax(ref, n, block):
     """The blocked Gauss-Jordan (identity padding, panels, overwrites) ==
     batched_inv(pivot="xla") and numpy complex128: 5e-5. The port's own
     pivot="xla" gives the bits of its default on a CPU tensor."""
@@ -222,98 +213,77 @@ def test_batched_inv_matches_jax(n, block):
         batched_inv.batched_inv(_t(a), block=block, pivot="xla").numpy(), out)
     assert out.shape == a.shape
     assert _batch_rel(out, np.linalg.inv(a.astype(np.complex128))) < 5e-5
-    ref = cpx.to_numpy(jinv.batched_inv(cpx.of(jnp.asarray(a)), block=block,
-                                        pivot="xla"))
-    assert _batch_rel(out, ref) < 5e-5
+    assert _batch_rel(out, ref[f"inv_{n}_{block}"]) < 5e-5
 
 
 # -- cyclic reduction ------------------------------------------------------
 
-def _cr_planes(rng, ny, nx):
-    """The random planes of tests/test_cyclic.py: structural zeros on the
-    border and a dominant centre."""
-    c = _cplx(rng, (9, ny, nx))
-    c[0] += 6.0
-    for s in range(1, 9):
-        c[s, 0, :] = c[s, -1, :] = 0
-        c[s, :, 0] = c[s, :, -1] = 0
-    return c
-
-
-def _levels(jfac):
-    return [[_pair(part) for part in lev] for lev in jfac.levels]
-
-
-@pytest.mark.parametrize("ny", [1, 2, 7, 12, 13])
-def test_cr_matches_jax(ny):
+@pytest.mark.parametrize("ny", GEN.EN_CR)
+def test_cr_matches_jax(ref, ny):
     """cr_factor / cr_solve == cr_factor_cpx / cr_solve_cpx, level by level
     and in the solution, forward and adjoint: 1e-4 (tests/test_cyclic.py's
     bound). The JAX factor carried across by interop.cr_factor solves the
-    same through the port's cr_solve."""
-    nx = 8
-    rng = np.random.default_rng(6)
-    planes = _cr_planes(rng, ny, nx)
-    b = _cplx(rng, (3, ny, nx))
-
-    @jax.jit
-    def reference(c, rhs):
-        jfac = cr_factor_cpx(c, block=8)
-        return jfac, [cr_solve_cpx(jfac, rhs, adjoint=a) for a in (False, True)]
-
-    jfac, refs = reference(cpx.of(planes), cpx.of(b))
+    same through the port's cr_solve. LIVE_CR runs the JAX package here."""
+    planes, b = GEN.en_cr_case(ny)
+    if ny == LIVE_CR:
+        from waveforminversionust_tpu.ops import cpx
+        jfac, refs = GEN.en_cr_reference(planes, b)
+        levels = [[_pair(cpx.to_numpy(part)) for part in lev]
+                  for lev in jfac.levels]
+        dinv_root = cpx.to_numpy(jfac.dinv_root)
+        refs = [cpx.to_numpy(r) for r in refs]
+    else:
+        key = f"cr_{ny}"
+        levels = [[_pair(ref[f"{key}_lev{i}_{j}"])
+                   for j in range(len(cyclic.CRLevel._fields))]
+                  for i in range(int(ref[f"{key}_levels"]))]
+        dinv_root = ref[f"{key}_dinv_root"]
+        refs = [ref[f"{key}_fwd"], ref[f"{key}_adj"]]
     fac = cyclic.cr_factor(_t(planes), block=8)
-    carried = interop.cr_factor(_levels(jfac), _pair(jfac.dinv_root),
-                                *_pair(jfac.coeffs))
-    assert len(fac.levels) == len(jfac.levels) == len(carried.levels)
+    carried = interop.cr_factor(levels, _pair(dinv_root), *_pair(planes))
+    assert len(fac.levels) == len(levels) == len(carried.levels)
     for lev, clev in zip(fac.levels, carried.levels):
         for name in cyclic.CRLevel._fields:
             got, ref = getattr(lev, name).numpy(), getattr(clev, name).numpy()
             assert got.shape == ref.shape
             assert np.abs(got - ref).max() < 1e-4 * max(np.abs(ref).max(), 1.0)
     assert _max_rel(fac.dinv_root.numpy(), carried.dinv_root.numpy()) < 1e-4
-    for adjoint, ref in zip((False, True), refs):
-        ref = cpx.to_numpy(ref)
-        assert _fro_rel(cyclic.cr_solve(fac, _t(b), adjoint).numpy(), ref) < 1e-4
+    for adjoint, want in zip((False, True), refs):
+        assert _fro_rel(cyclic.cr_solve(fac, _t(b), adjoint).numpy(),
+                        want) < 1e-4
         assert _fro_rel(cyclic.cr_solve(carried, _t(b), adjoint).numpy(),
-                        ref) < 1e-4
+                        want) < 1e-4
 
 
 # -- the solves ------------------------------------------------------------
 
-EXTENT = 16e-3   # 41x41 at 0.8 mm
-PML = dict(l_pml=3.2e-3)
+EXTENT = GEN.EN_EXTENT   # 41x41 at 0.8 mm
+PML = GEN.EN_PML
 ENGINE_TOL = {"twisted": 5e-5, "cr": 5e-4}  # the JAX tests' own bounds
 
 
 @pytest.mark.parametrize("factorization", ["twisted", "cr"])
-def test_solve_helmholtz_engines_match_jax(factorization):
+def test_solve_helmholtz_engines_match_jax(ref, factorization):
     """solve_helmholtz through each engine == the JAX package's through the
     same engine (split_complex=True), forward and adjoint: 5e-5 twisted,
     5e-4 cr (the bounds of tests/test_twisted.py and tests/test_cyclic.py);
-    the reported true residual < 1e-4."""
-    jg, tg = JGrid.centered(EXTENT, 0.8e-3), Grid2D.centered(EXTENT, 0.8e-3)
-    vel = smooth_blob_phantom(jg, radius=EXTENT / 3, dc=60)
-    src = _cplx(np.random.default_rng(7), (2,) + jg.shape)
-    jcfg = JSolver(split_complex=True, factorization=factorization,
-                   pml=JPML(**PML))
+    the reported true residual < 1e-4.
+
+    Each package builds its own planes, and the JAX package's FP32 fit of
+    the stencil's (d, e) moves by a few 1e-5 with the order XLA takes its
+    sums in (test_torch_ops.py::test_stencil_params_match): compiled whole,
+    its twisted solve sits 5.2e-5 from the port's, past the twisted bound,
+    so the generator runs that reference op by op, as test_torch_ops.py
+    runs it (1.4e-5)."""
+    tg = Grid2D.centered(EXTENT, 0.8e-3)
+    vel = smooth_blob_phantom(tg, radius=EXTENT / 3, dc=60)
+    src = _cplx(np.random.default_rng(7), (2,) + tg.shape)
     tcfg = SolverConfig(factorization=factorization, pml=PMLConfig(**PML))
-
-    def reference(v, s):
-        return [jsolve.solve_helmholtz(v, s, jnp.float32(F), jg, jcfg,
-                                       adjoint=a)[0] for a in (False, True)]
-
-    # Each package builds its own planes, and the JAX package's FP32 fit of
-    # the stencil's (d, e) moves by a few 1e-5 with the order XLA takes its
-    # sums in (test_torch_ops.py::test_stencil_params_match): compiled whole,
-    # its solve sits 5.2e-5 from the port's, past the twisted bound, so that
-    # reference runs op by op, as test_torch_ops.py runs it (1.4e-5).
-    if factorization == "cr":
-        reference = jax.jit(reference)
-    refs = reference(jnp.asarray(vel), cpx.of(src))
-    for adjoint, ref in zip((False, True), refs):
+    for adjoint in (False, True):
+        want = ref[f"solve_{factorization}_{'adj' if adjoint else 'fwd'}"]
         out, info = tsolve.solve_helmholtz(torch.as_tensor(vel), _t(src), F,
                                            tg, tcfg, adjoint=adjoint)
-        assert _fro_rel(out.numpy(), cpx.to_numpy(ref)) < ENGINE_TOL[factorization]
+        assert _fro_rel(out.numpy(), want) < ENGINE_TOL[factorization]
         assert float(info.rel_residual.max()) < 1e-4
 
 
@@ -368,41 +338,26 @@ def test_operator_api_serves_every_factor_type(monkeypatch, factorization):
 
 # -- the slice as a whole ----------------------------------------------------
 
-TINY_F = 300e3
-TINY_ACQ = dict(num_elements=8, radius=12e-3, num_excluded_each_side=1)
+TINY_F = GEN.EN_TINY_F
+TINY_ACQ = GEN.EN_TINY_ACQ
 
 
 @pytest.fixture(scope="module")
-def tiny_ring():
+def tiny_ring(ref):
     """41x41 grid, 8-element ring, data synthesized by the JAX package (the
-    ring of tests/test_torch_fwi.py)."""
-    jgrid = JGrid.centered(EXTENT, 0.8e-3)
-    vel = smooth_blob_phantom(jgrid, radius=6e-3, dc=40, c_bkgnd=1500.0)
-    jsolver = JSolver(split_complex=True, pml=JPML(**PML))
-    ds = jsynthesize(vel, jgrid, JAcq(**TINY_ACQ), f=TINY_F, seed=3,
-                     solver=jsolver)
-    return jgrid, jsolver, ds
+    ring of tests/test_torch_fwi.py), as the port's RingDataset."""
+    return interop.ring_dataset(*(ref[f"ring_{k}"] for k in (
+        "x", "y", "c", "x_circ", "y_circ", "f", "rec_data")))
 
 
 @pytest.mark.parametrize("factorization", ["twisted", "cr"])
-def test_nonlinear_cg_engines_match_jax(tiny_ring, factorization):
+def test_nonlinear_cg_engines_match_jax(ref, tiny_ring, factorization):
     """3 iterations with refactor_every=2 (factored, stale with the extra
     refinement pass, factored) through each engine == the JAX package's
     nonlinear_cg through the same engine on the same data: loss and step
     rtol 1e-2, velocity atol 0.5 m/s (the golden bounds)."""
-    jgrid, jsolver, ds = tiny_ring
-    jacq = jbuild_acq(jgrid, JAcq(**TINY_ACQ), x_elem=ds.x_circ,
-                      y_elem=ds.y_circ)
-    jdata = jobj.build_fwi_data(jacq, ds.rec_data, TINY_F, split=True)
-    ref = jopt.nonlinear_cg(
-        jnp.full(jgrid.shape, 1500.0, jnp.float32), jdata, jgrid,
-        dataclasses.replace(jsolver, refactor_every=2,
-                            factorization=factorization),
-        JFWI(num_iterations=3))
-
     grid = Grid2D.centered(EXTENT, 0.8e-3)
-    tds = interop.ring_dataset(ds.x, ds.y, ds.c, ds.x_circ, ds.y_circ, ds.f,
-                               ds.rec_data)
+    tds = tiny_ring
     acq = build_ring_acquisition(grid, AcquisitionConfig(**TINY_ACQ),
                                  x_elem=tds.x_circ, y_elem=tds.y_circ)
     data = tobj.build_fwi_data(acq, tds.rec_data, TINY_F, device="cpu")
@@ -413,10 +368,9 @@ def test_nonlinear_cg_engines_match_jax(tiny_ring, factorization):
         FWIConfig(num_iterations=3))
     for f in ("loss", "step_size"):
         np.testing.assert_allclose(getattr(port.metrics, f).numpy(),
-                                   np.asarray(getattr(ref.metrics, f)),
-                                   rtol=1e-2)
-    np.testing.assert_allclose(port.velocity.numpy(), np.asarray(ref.velocity),
-                               atol=0.5)
+                                   ref[f"cg_{factorization}_{f}"], rtol=1e-2)
+    np.testing.assert_allclose(port.velocity.numpy(),
+                               ref[f"cg_{factorization}_velocity"], atol=0.5)
 
 
 # -- where the entry points run ----------------------------------------------
@@ -424,9 +378,7 @@ def test_nonlinear_cg_engines_match_jax(tiny_ring, factorization):
 def test_entry_points_default_to_the_card(tiny_ring):
     """With no ``device=`` the entry points run on the card; where there is
     none they raise, naming CUDA, rather than run on the CPU."""
-    jgrid, _, ds = tiny_ring
-    tds = interop.ring_dataset(ds.x, ds.y, ds.c, ds.x_circ, ds.y_circ, ds.f,
-                               ds.rec_data)
+    tds = tiny_ring
     grid = Grid2D.centered(EXTENT, 0.8e-3)
     acq_cfg = AcquisitionConfig(**TINY_ACQ)
     if torch.cuda.is_available():

@@ -7,6 +7,8 @@ each kernel against its plain version, and skip where there is no card.
 ``python3 chip_smoke.py`` runs the same checks at the main path's shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -129,11 +131,37 @@ def test_solver_config_dispatch(monkeypatch, factorization, fused_apply):
                             for mode in ("auto", "thomas")
                             for hybrid in (dict(factor_schulz_steps=2),
                                            dict(fast_sweeps=True))])
-def test_later_slices_raise(cfg):
-    grid = Grid2D.centered(4e-3, 0.8e-3)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsolve.make_helmholtz_operator(torch.full(grid.shape, 1500.0), F,
-                                       grid, cfg)
+def test_later_slices_raise(cfg, monkeypatch):
+    """The name is kept from when all six cases raised; now only the two
+    spike (grid-sharded) cases still raise, until the multi-device slice.
+    The four others pin that under "auto" and "thomas" the scan hybrids,
+    factor_schulz_steps=2 and fast_sweeps=True, solve through the plain block-Thomas factor (no
+    factor kernel wrapper is called, as the JAX package sends them to its
+    scan path) and match the exact factor's solve: rel 1e-4 (the hybrid's
+    bound in tests/test_split_engine.py), forward and adjoint."""
+    if cfg.factorization == "spike":
+        grid = Grid2D.centered(4e-3, 0.8e-3)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tsolve.make_helmholtz_operator(torch.full(grid.shape, 1500.0), F,
+                                           grid, cfg)
+        return
+    monkeypatch.setattr(tsolve, "banded_factor_kernel", None)
+    grid = Grid2D.centered(16e-3, 0.8e-3)
+    vel = torch.as_tensor(smooth_blob_phantom(grid, radius=5e-3, dc=60))
+    cfg = dataclasses.replace(cfg, pml=PMLConfig(l_pml=3.2e-3))
+    exact = dataclasses.replace(cfg, factorization="thomas",
+                                factor_schulz_steps=0, fast_sweeps=None)
+    op = tsolve.make_helmholtz_operator(vel, F, grid, cfg)
+    assert isinstance(op.factor, tsolve.BandedFactor)
+    assert (op.factor.sweeps is not None) == bool(cfg.fast_sweeps)
+    want_op = tsolve.make_helmholtz_operator(vel, F, grid, exact)
+    src = _fields(21, (2,) + grid.shape)
+    for adjoint in (False, True):
+        u = tsolve.helmholtz_operator_solve(op, src, grid, cfg,
+                                            adjoint=adjoint)
+        want = tsolve.helmholtz_operator_solve(want_op, src, grid, exact,
+                                               adjoint=adjoint)
+        assert _rel(u, want) < 1e-4, adjoint
 
 
 @pytest.mark.parametrize("method", [SolverMethod.GMRES, SolverMethod.BORN])

@@ -178,6 +178,60 @@ def test_plain_sweeps_match(jax_planes, adjoint):
     assert _rel(op(tfac.coeffs, x).numpy(), b) < 2e-5
 
 
+@pytest.mark.parametrize("steps", [2, 4])
+def test_schulz_hybrid_factor_matches(jax_planes, monkeypatch, steps):
+    """banded_factor(schulz_steps=...) against the JAX package's
+    banded_factor_cpx with the same steps, on the 61x61 operator: the
+    solves through each hybrid factor agree within the hybrid's bound of
+    tests/test_split_engine.py (1e-4), as does the port's true residual. At
+    4 steps the warm-started rows are taken (their err2 <= 1e-6) on all
+    but a few of the rows the head/tail/every-16th rule leaves to Schulz;
+    at 2 steps none pass and every row takes the exact inverse."""
+    from waveforminversionust_tpu_torch.ops import banded as tbanded
+    tried, taken = [], []
+    refine = tbanded._schulz_refine
+
+    def spy(g, s, k):
+        out = refine(g, s, k)
+        tried.append(1)
+        taken.append(float(out[1]) <= 1e-6)
+        return out
+
+    monkeypatch.setattr(tbanded, "_schulz_refine", spy)
+    planes = _planes_np(jax_planes)
+    fac = banded.banded_factor(_to_t(planes), schulz_steps=steps)
+    ny = planes.shape[1]
+    assert len(tried) == ny - 12 - 2 - len(range(16, ny - 2, 16))
+    assert sum(taken) >= (len(tried) - 2 if steps == 4 else 0)
+    b = _random_fields(2, (3,) + planes.shape[1:])
+    ref = cpx.to_numpy(banded_solve_cpx(
+        banded_factor_cpx(jax_planes, schulz_steps=steps), cpx.of(b)))
+    x = banded.banded_solve(fac, _to_t(b))
+    assert _rel(x.numpy(), ref) < 1e-4
+    assert _rel(apply.h_apply(fac.coeffs, x).numpy(), b) < 1e-4
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_fast_sweeps_match(jax_planes, adjoint):
+    """The precomputed sweep operators (complex64 M, N, R) against the JAX
+    package's real-embedded ones (banded_factor_cpx(precompute_sweeps=
+    True)) and against the port's own stock sweeps, forward and adjoint:
+    rel 1e-5 (tests/test_split_engine.py's bound)."""
+    planes = _to_t(_planes_np(jax_planes))
+    fast = banded.banded_factor(planes, precompute_sweeps=True)
+    assert fast.sweeps is not None
+    assert fast.sweeps.m.shape == fast.g.shape
+    b = _random_fields(3, (3,) + planes.shape[1:])
+    ref = cpx.to_numpy(banded_solve_cpx(
+        banded_factor_cpx(jax_planes, precompute_sweeps=True), cpx.of(b),
+        adjoint=adjoint))
+    x = banded.banded_solve(fast, _to_t(b), adjoint=adjoint).numpy()
+    stock = banded.banded_solve(fast._replace(sweeps=None), _to_t(b),
+                                adjoint=adjoint).numpy()
+    assert _rel(x, ref) < 1e-5
+    assert _rel(x, stock) < 1e-5
+
+
 def _stencil_params_f64(vmin, vmax, h):
     """The dispersion fit of ops/stencil.py (fix_b) in float64 numpy."""
     l, r = 100, 10

@@ -462,12 +462,18 @@ MODULES = ["models.acquisition", "models.phantom", "models.grid3d",
            "fwi.calibrate", "fwi.runner", "fwi.lbfgs", "fwi.newton",
            "fwi.resolution", "fwi.multifreq", "fwi.fwi3d", "fwi.runner3d",
            "fwi.eikonal", "fwi.traveltime", "fwi.eikonal3d",
-           "fwi.traveltime3d", "utils.checkpoint"]
+           "fwi.traveltime3d", "utils.checkpoint", "cli", "viz",
+           "utils.host", "utils.profiling", "utils.flops"]
 # Parameters the port adds, beside the entry points' ``device=``, and why.
 ALLOWED = {
     ("ops.batched_inv", "batched_inv"): {
         "pivot_inv": "the two-level blocking test passes its own pivot "
                      "inverse (tests/test_torch_ops.py)"},
+    ("ops.banded", "banded_factor"): dict.fromkeys(
+        ("schulz_steps", "precompute_sweeps"),
+        "the scan hybrids, which the reference carries only in its split "
+        "engine's banded_factor_cpx (ops/split_engine.py:279); the port's "
+        "one complex64 factor takes them"),
 }
 SIMPLE = (bool, int, float, str, tuple, type(None))
 

@@ -13,8 +13,8 @@ differentiable form, 3D nonlinear CG, L-BFGS, attenuation and joint
 inversion, Gauss-Newton and calibration, their continuation entry and the
 3D broadband chain) and the travel-time starting models in 2D and 3D
 (eikonal solves, straight and bent rays) run no kernel of their own.
-The entry points run on the card unless the caller passes
-``device="cpu"``.
+The entry points, and the command line (``cli.py``, ``wiust-torch``), run
+on the card unless the caller passes ``device="cpu"`` (``--device cpu``).
 
 The JAX package beside it is the reference; this package imports ``torch``
 and never ``jax``. All math is FP32 (complex64). TF32 is off for matrix

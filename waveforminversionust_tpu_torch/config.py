@@ -41,11 +41,11 @@ What the port does with each field in this slice:
   full FP32 (complex64), which is also what the JAX CPU path runs. Their
   reduced-precision Hopper mode is queued in ROADMAP.md.
 * ``factor_schulz_steps`` and ``fast_sweeps``: under ``"auto"`` and
-  ``"thomas"`` the reference turns them into the Schulz hybrid and the
-  embedded sweep operators, which are not ported: ``factor_schulz_steps >
-  0`` or ``fast_sweeps=True`` there raises ``NotImplementedError``.
-  ``"pallas"``, ``"twisted"`` and ``"cr"`` ignore both, as the reference
-  does.
+  ``"thomas"`` they select the reference's scan hybrids, the warm-started
+  Schulz row inverse and the precomputed sweep operators, in the plain
+  block-Thomas factorization (``ops/banded.py``; on the card too, so the
+  factor kernel does not run). ``"pallas"``, ``"twisted"`` and ``"cr"``
+  ignore both, as the reference does.
 """
 
 from __future__ import annotations

@@ -4,10 +4,12 @@ The reference's ``RecordedData.mat`` is a MATLAB v7.3 file (HDF5 with MATLAB
 attributes) and ``REC.mat`` a classic v5 file. v5 files go through
 ``scipy.io``; v7.3 files need h5py, which is imported only when such a file
 is read or written, so that a host without h5py still reads v5 files and
-imports this module.
+imports this module. Without h5py, ``save_mat`` writes v5.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
@@ -59,19 +61,35 @@ def load_mat(path: str) -> dict:
     return {k: v for k, v in raw.items() if not k.startswith("__")}
 
 
+def _matlab_2d(value: np.ndarray) -> np.ndarray:
+    """MATLAB's view of an array: a scalar as 1x1, a vector as a column."""
+    if value.ndim == 0:
+        return value.reshape(1, 1)
+    if value.ndim == 1:
+        return value.reshape(-1, 1)
+    return value
+
+
 def save_mat(path: str, arrays: dict) -> None:
     """Write a MATLAB v7.3-compatible (HDF5) .mat file: numeric arrays only,
     complex data as MATLAB's compound real/imag dtype, arrays transposed to
-    column-major as MATLAB expects."""
-    h5py = _h5py()
+    column-major as MATLAB expects. On a host without h5py the same arrays
+    (0-d as 1x1, 1-d as columns) go into a classic v5 file through
+    ``scipy.io``, which MATLAB and :func:`load_mat` read as well, and a
+    warning names the format written."""
+    try:
+        import h5py
+    except ImportError:
+        from scipy.io import savemat
+        warnings.warn(f"h5py is not installed: {path} is written as a MATLAB "
+                      "v5 file, not v7.3", stacklevel=2)
+        savemat(path, {name: _matlab_2d(np.asarray(value))
+                       for name, value in arrays.items()})
+        return
     userblock = 512
     with h5py.File(path, "w", userblock_size=userblock) as fh:
         for name, value in arrays.items():
-            value = np.asarray(value)
-            if value.ndim == 0:
-                value = value.reshape(1, 1)
-            elif value.ndim == 1:
-                value = value.reshape(-1, 1)
+            value = _matlab_2d(np.asarray(value))
             matlab_class = {
                 "f8": b"double", "f4": b"single",
                 "i4": b"int32", "i8": b"int64",

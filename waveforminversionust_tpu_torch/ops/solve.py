@@ -82,23 +82,18 @@ def factor_operator(coeffs: torch.Tensor, cfg: SolverConfig):
     """Direct factorization per ``cfg.factorization``: a
     :class:`BandedFactor`, :class:`TwistedFactor` or :class:`CRFactor`.
 
-    Under "auto" and "thomas" the reference runs the Schulz hybrid or the
-    embedded sweep operators when ``factor_schulz_steps > 0`` or
-    ``fast_sweeps`` is true; neither is ported, so those raise. "pallas",
-    "twisted" and "cr" ignore both fields, as the reference does."""
+    Under "auto" and "thomas", ``factor_schulz_steps > 0`` or a true
+    ``fast_sweeps`` takes the plain block-Thomas factorization with the
+    Schulz hybrid and the precomputed sweep operators, on the card too, as
+    the reference sends them to its scan path (its ``ops/solve.py:546-576``).
+    "pallas", "twisted" and "cr" ignore both fields, as the reference does."""
     mode = cfg.factorization
-    if mode in ("auto", "thomas") and (cfg.factor_schulz_steps > 0
-                                       or cfg.fast_sweeps is True):
-        raise NotImplementedError(
-            f"factorization={mode!r} with factor_schulz_steps="
-            f"{cfg.factor_schulz_steps} / fast_sweeps={cfg.fast_sweeps}: the "
-            f"Schulz hybrid and the embedded sweep operators are ported in a "
-            f"later slice (ROADMAP.md C2); set both off or use "
-            f"factorization='pallas'")
+    hybrid = cfg.factor_schulz_steps > 0 or bool(cfg.fast_sweeps)
+    if mode == "thomas" or (mode == "auto" and hybrid):
+        return banded.banded_factor(coeffs, cfg.factor_schulz_steps,
+                                    precompute_sweeps=bool(cfg.fast_sweeps))
     if mode in ("auto", "pallas"):
         return banded_factor_kernel(coeffs)
-    if mode == "thomas":
-        return banded.banded_factor(coeffs)
     if mode == "twisted":
         return twisted_factor_kernel(coeffs)
     if mode == "cr":
@@ -117,7 +112,8 @@ def _sweeps(factor, cfg: SolverConfig):
         return twisted_solve_kernel
     if isinstance(factor, CRFactor):
         return cyclic.cr_solve
-    return (banded.banded_solve if cfg.factorization == "thomas"
+    return (banded.banded_solve
+            if factor.sweeps is not None or cfg.factorization == "thomas"
             else banded_solve_kernel)
 
 
