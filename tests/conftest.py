@@ -8,8 +8,20 @@ all; this suite is the framework's correctness contract.
 
 import os
 
+# One compute thread a test process wherever a library takes a setting:
+# XLA:CPU's multithreaded Eigen, and torch and numpy's BLAS
+# (OMP_NUM_THREADS, read when they load), so no test file pins threads of
+# its own. (XLA:CPU still runs part of its work on its own pool, XLAEigen,
+# one thread a core; no flag of this jaxlib caps it.) The suite runs under
+# six xdist workers on 8 cores: with each library's default threads the
+# load average sat at 21-24 and the run thrashed (test_timedomain's
+# end-to-end inversion 666 s, 5.5 s with one thread; test_attenuation's
+# regularized multifrequency run 461 s, 7.0 s). A caller's own XLA_FLAGS
+# wins; OMP_NUM_THREADS is 1 whatever the caller set.
 os.environ.setdefault("XLA_FLAGS",
-                      "--xla_force_host_platform_device_count=8")
+                      "--xla_force_host_platform_device_count=8 "
+                      "--xla_cpu_multi_thread_eigen=false")
+os.environ["OMP_NUM_THREADS"] = "1"
 
 import jax  # noqa: E402
 

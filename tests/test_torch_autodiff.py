@@ -52,18 +52,6 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 ENGINES = ["thomas", "auto", "twisted", "cr"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tests run many small tensor operations,
-    which extra threads only slow when several test workers share the
-    machine (the solver files under four workers: 259 s with the default
-    threads, 52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _load_generator():
     spec = importlib.util.spec_from_file_location(
         "generate_torch", os.path.join(GOLDEN, "generate_torch.py"))

@@ -43,19 +43,6 @@ F = GEN.SOLVE_F
 CFG = SolverConfig(method=SolverMethod.BORN)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the Born solves on these small grids run
-    thousands of tiny operations, which extra threads only slow when
-    several test workers share the machine (this file, the GMRES, runner
-    and kernel files under four workers: 259 s with the default threads,
-    52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's outputs (tests/golden/generate_torch.py solvers)."""

@@ -38,17 +38,6 @@ GEN = _load_generator()
 PML = PMLConfig(**GEN.PML3)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the solves on these small volumes are many
-    small operations, which extra threads only slow when several test
-    workers share the machine."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's outputs (tests/golden/generate_torch.py 3d)."""

@@ -40,15 +40,6 @@ SUBCOMMANDS = ["run", "simulate", "timedomain", "broadband", "broadband3d",
                "bench", "qc"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as in every port test file."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """The JAX CLI's outputs (tests/golden/generate_torch.py cli)."""

@@ -8,24 +8,11 @@ import subprocess
 import sys
 
 import pytest
-import torch
 
 from waveforminversionust_tpu import config as jcfg
 from waveforminversionust_tpu_torch import config as tcfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tests run many small tensor operations,
-    which extra threads only slow when several test workers share the
-    machine (the solver files under four workers: 259 s with the default
-    threads, 52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _norm(v):

@@ -53,18 +53,6 @@ PML = dict(l_pml=4e-3)
 SEARCH = dict(c_min=1440.0, c_max=1600.0, num=9, levels=2)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tests run many small tensor operations,
-    which extra threads only slow when several test workers share the
-    machine (the solver files under four workers: 259 s with the default
-    threads, 52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _cplx(rng, shape):
     return (rng.standard_normal(shape)
             + 1j * rng.standard_normal(shape)).astype(np.complex64)

@@ -31,18 +31,6 @@ from waveforminversionust_tpu_torch.ops.stencil import helmholtz_coefficients
 F = 350e3
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tests run many small tensor operations,
-    which extra threads only slow when several test workers share the
-    machine (the solver files under four workers: 259 s with the default
-    threads, 52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _planes(extent=12e-3, device="cpu"):
     grid = Grid2D.centered(extent, 0.8e-3)
     vel = smooth_blob_phantom(grid, radius=extent / 3, dc=60)

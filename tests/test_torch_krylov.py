@@ -56,18 +56,6 @@ GEN = _load_generator()
 F = GEN.SOLVE_F
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: GMRES's host loop and these small grids run
-    thousands of tiny operations, which extra threads only slow when
-    several test workers share the machine (test_cg_gmres_matches_jax: 5 s
-    alone, 164 s under four workers with the default threads)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's outputs (tests/golden/generate_torch.py solvers)."""

@@ -42,17 +42,6 @@ GRID = Grid3D.centered(GEN.G3_EXTENT, GEN.G3_H)
 PML = PMLConfig(**GEN.PML3)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the solves on these small volumes are many
-    small operations, which extra threads only slow when several test
-    workers share the machine."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's outputs (tests/golden/generate_torch.py

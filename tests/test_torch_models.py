@@ -5,7 +5,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from waveforminversionust_tpu import AcquisitionConfig as JAcq
 from waveforminversionust_tpu.models import acquisition as jacq
@@ -15,18 +14,6 @@ from waveforminversionust_tpu_torch.config import AcquisitionConfig as TAcq
 from waveforminversionust_tpu_torch.models import acquisition as tacq
 from waveforminversionust_tpu_torch.models import phantom as tph
 from waveforminversionust_tpu_torch.models.grid import Grid2D as TGrid
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tests run many small tensor operations,
-    which extra threads only slow when several test workers share the
-    machine (the solver files under four workers: 259 s with the default
-    threads, 52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_grid_matches():

@@ -36,18 +36,6 @@ F = 350e3
 EXTENT = 24e-3
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tests run many small tensor operations,
-    which extra threads only slow when several test workers share the
-    machine (the solver files under four workers: 259 s with the default
-    threads, 52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _grids():
     return JGrid.centered(EXTENT, 0.8e-3), Grid2D.centered(EXTENT, 0.8e-3)
 

@@ -62,18 +62,6 @@ ACQ = dict(num_elements=32, radius=18e-3, num_excluded_each_side=5)
 PML = dict(l_pml=4e-3)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these tests run many small tensor operations,
-    which extra threads only slow when several test workers share the
-    machine (the solver files under four workers: 259 s with the default
-    threads, 52 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def recordings():
     """(port grid, {frequency: RingDataset}) with receive sensitivities."""
@@ -436,7 +424,7 @@ def test_iterative_solvers_run_every_method(small_recordings, method,
                                             solver_method):
     """invert_dataset runs GMRES and Born under the methods the JAX
     package runs them with: 2 iterations, finite and decreasing losses
-    (on the module's one intra-op thread)."""
+    (on the one intra-op thread tests/conftest.py sets)."""
     grid, acq, recs = small_recordings
     data = recs if method == "joint-multifreq" else recs[300e3]
     res = runner.invert_dataset(

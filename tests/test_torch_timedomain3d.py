@@ -13,7 +13,6 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
 from waveforminversionust_tpu.data import timedomain3d as jtd3
 from waveforminversionust_tpu.fwi import runner3d as jrunner3d
@@ -44,17 +43,6 @@ POS = acquisition3d.cylinder_positions(**GEN.TD3_POS)
 SCHEDULE = ContinuationConfig(frequencies=GEN.TD3_FREQS,
                               iterations_per_frequency=GEN.TD3_ITERS)
 INVERT = dict(pml=PML, solver3d="cbs", iter_cap=GEN.TD3_CAP)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the solves on these small volumes are many
-    small operations, which extra threads only slow when several test
-    workers share the machine."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -37,16 +37,6 @@ GRID = Grid2D.centered(GEN.TT_EXTENT, GEN.TT_H)
 SRC = np.asarray(GEN.TT_SRC, np.float32)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: many small operations, which extra threads
-    only slow when several test workers share the machine."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's outputs (tests/golden/generate_torch.py

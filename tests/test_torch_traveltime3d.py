@@ -40,16 +40,6 @@ GRID = Grid3D.centered(GEN.TT3_EXTENT, GEN.TT3_H)
 SRC = np.asarray(GEN.TT3_SRC, np.float32)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: many small operations, which extra threads
-    only slow when several test workers share the machine."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's outputs (tests/golden/generate_torch.py

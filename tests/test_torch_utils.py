@@ -15,15 +15,6 @@ from waveforminversionust_tpu.utils import flops as jflops
 from waveforminversionust_tpu_torch.utils import flops, host, profiling
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as in every port test file."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 SHAPES = [(301, 301, 256), (151, 151, 16), (64, 256, 1), (801, 801, 64)]
 
 

@@ -8,7 +8,6 @@ CPU.
 import os
 
 import numpy as np
-import pytest
 import torch
 
 from waveforminversionust_tpu_torch import viz
@@ -24,15 +23,6 @@ from waveforminversionust_tpu_torch.models.grid import Grid2D
 from waveforminversionust_tpu_torch.models.phantom import smooth_blob_phantom
 
 PML = PMLConfig(l_pml=2.4e-3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as in every port test file."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _size(path):
