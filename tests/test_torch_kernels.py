@@ -759,6 +759,48 @@ def test_3d_entry_points_default_to_the_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("interpolation", ["nearest", "bilinear"])
+def test_2d_source_cubes_built_on_the_card(cuda, interpolation, monkeypatch):
+    """``build_fwi_data``'s sources and the cube ``synthesize_ring_dataset``
+    hands to the solve are built on the card, bit for bit the CPU cube
+    (151^2, 256 transmitters)."""
+    from waveforminversionust_tpu_torch.config import AcquisitionConfig
+    from waveforminversionust_tpu_torch.data import synthesize
+    from waveforminversionust_tpu_torch.fwi.objective import build_fwi_data
+    from waveforminversionust_tpu_torch.models import acquisition
+
+    def bits(x):
+        return x.cpu().numpy().view(np.uint64)
+
+    grid = Grid2D.centered(120e-3, 1.6e-3)
+    config = AcquisitionConfig(interpolation=interpolation)
+    acq = acquisition.build_ring_acquisition(grid, config)
+    seen = []
+
+    def solve(vel, src, *args, **kwargs):
+        seen.append(src)
+        return tsolve.solve_helmholtz(vel, src, *args, **kwargs)
+
+    monkeypatch.setattr(synthesize, "solve_helmholtz", solve)
+    data = build_fwi_data(acq, np.ones((256, 256), np.complex64), 200e3)
+    synthesize.synthesize_ring_dataset(
+        np.full(grid.shape, 1500.0, np.float32), grid, config, f=200e3,
+        seed=2**31 + 5)
+    torch.cuda.synchronize()
+    assert data.src.is_cuda and len(seen) == 1 and seen[0].is_cuda
+
+    np.testing.assert_array_equal(bits(data.src),
+                                  bits(acq.source_cube(device="cpu")))
+    synth_acq = acquisition.build_ring_acquisition(
+        grid, synthesize.dataclass_replace_tx_all(config))
+    rng = np.random.default_rng(2**31 + 5)
+    amps = (rng.standard_normal(256)
+            + 1j * rng.standard_normal(256)).astype(np.complex64)
+    np.testing.assert_array_equal(
+        bits(seen[0]), bits(synth_acq.source_cube(amps, device="cpu")))
+
+
+@pytest.mark.cuda
 def test_born3d_dft_route_on_card(cuda):
     """On the card the dft route's transform is cuFFT's: rel < 1e-5 at
     "highest" (FP32 products), < 1e-3 at "high" (TF32 tensor cores; that

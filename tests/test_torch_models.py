@@ -29,15 +29,21 @@ def test_grid_matches():
             == dataclasses.astuple(TGrid.from_arrays(x, y)))
 
 
-@pytest.mark.parametrize("interpolation", ["nearest", "bilinear"])
-def test_ring_acquisition_matches(interpolation):
-    """The reference ring on the 301^2 grid: 193 active receivers."""
+@pytest.mark.parametrize(
+    "interpolation, tx_downsample, random_amplitudes",
+    [pytest.param(i, d, a, id=i if (d, a) == (4, True) else f"{i}-{d}-{a}")
+     for i in ("nearest", "bilinear") for d in (4, 1, 8) for a in (True, False)])
+def test_ring_acquisition_matches(interpolation, tx_downsample,
+                                  random_amplitudes):
+    """The reference ring on the 301^2 grid: 193 active receivers. The
+    port's source cube, built by one scatter on the device asked for (here
+    the CPU), and its numpy wrapper are bit for bit the JAX package's."""
     grid = JGrid.centered(120e-3, 0.8e-3)
     j = jacq.build_ring_acquisition(grid, JAcq(interpolation=interpolation,
-                                               tx_downsample=4))
+                                               tx_downsample=tx_downsample))
     t = tacq.build_ring_acquisition(TGrid.centered(120e-3, 0.8e-3),
                                     TAcq(interpolation=interpolation,
-                                         tx_downsample=4))
+                                         tx_downsample=tx_downsample))
     assert t.num_active_rx == 193 == j.num_active_rx
     for f in dataclasses.fields(j):
         if f.name == "grid":
@@ -47,10 +53,16 @@ def test_ring_acquisition_matches(interpolation):
             assert b is None, f.name
         else:
             np.testing.assert_array_equal(a, b, err_msg=f.name)
-    amps = (np.random.default_rng(3).standard_normal(j.num_tx)
-            + 1j).astype(np.complex64)
-    np.testing.assert_array_equal(j.source_fields(amplitudes=amps),
-                                  t.source_fields(amplitudes=amps))
+    amps = ((np.random.default_rng(3).standard_normal(j.num_tx)
+             + 1j).astype(np.complex64) if random_amplitudes else None)
+    want = j.source_fields(amplitudes=amps).view(np.uint64)
+    cube = t.source_cube(amplitudes=amps, device="cpu")
+    assert cube.device.type == "cpu" and cube.shape == (j.num_tx, 301, 301)
+    np.testing.assert_array_equal(cube.numpy().view(np.uint64), want)
+    np.testing.assert_array_equal(
+        t.source_fields(amplitudes=amps).view(np.uint64), want)
+    with pytest.raises(ValueError, match="complex64"):
+        t.source_fields(np.complex128, amplitudes=amps)
     np.testing.assert_array_equal(jacq.acceptance_mask(256, 31),
                                   tacq.acceptance_mask(256, 31))
 

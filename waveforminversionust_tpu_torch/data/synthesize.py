@@ -86,7 +86,7 @@ def synthesize_ring_dataset(vel, grid: Grid2D,
                 + 1j * rng.standard_normal(acq.num_tx)).astype(np.complex64)
     else:
         amps = np.ones(acq.num_tx, np.complex64)
-    src = torch.as_tensor(acq.source_fields(amplitudes=amps), device=device)
+    src = acq.source_cube(amplitudes=amps, device=device)
     vel_t = torch.as_tensor(vel, dtype=torch.float32).to(device)
     u, _ = solve_helmholtz(vel_t, src, f, grid, solver,
                            attenuation=attenuation)

@@ -24,7 +24,8 @@ from ..models.acquisition import RingAcquisition
 class FWIData(NamedTuple):
     """Device-resident inversion inputs.
 
-    src: (ntx, ny, nx) complex64 sources; rec_obs: (ntx, n_active)
+    src: (ntx, ny, nx) complex64 sources, built on the data's device
+    (``RingAcquisition.source_cube``); rec_obs: (ntx, n_active)
     complex64 observed data; rx_y, rx_x: (ntx, n_active) int64 receiver
     pixels ((ntx, n_active, 4) corners in bilinear mode, with weights rx_w);
     f: frequency [Hz]; attenuation: optional fixed alpha map [Np/m].
@@ -62,7 +63,7 @@ def build_fwi_data(acq: RingAcquisition, rec_data: np.ndarray, f,
 
     bilinear = acq.rx_w4 is not None
     return FWIData(
-        src=t(acq.source_fields(), torch.complex64),
+        src=acq.source_cube(device=device),
         rec_obs=t(rec.astype(np.complex64), torch.complex64),
         rx_y=t(acq.rx_y4 if bilinear else acq.rx_y, torch.long),
         rx_x=t(acq.rx_x4 if bilinear else acq.rx_x, torch.long),

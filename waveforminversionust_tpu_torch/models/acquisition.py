@@ -22,8 +22,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..config import AcquisitionConfig
+from ..device import default_device
 from .grid import Grid2D
 
 
@@ -137,26 +139,50 @@ class RingAcquisition:
     def num_active_rx(self) -> int:
         return int(self.rx_indices.shape[1])
 
-    def source_fields(self, dtype=np.complex64, amplitudes=None) -> np.ndarray:
-        """Source cube, shape (ntx, ny, nx): one-hot per transmit element
-        (nearest placement) or a 4-pixel bilinear stencil.
+    def source_cube(self, amplitudes=None, device=None) -> torch.Tensor:
+        """Source cube, (ntx, ny, nx) complex64, built on ``device`` (default:
+        the card, which raises when there is none): one-hot per transmit
+        element (nearest placement) or a 4-pixel bilinear stencil. Zeros are
+        allocated where the cube is used and the transmitters written by one
+        scatter; nothing of it passes through host memory.
 
         ``amplitudes`` (ntx,) sets per-element complex amplitudes (the data
         synthesizer draws them at random to force source-strength estimation;
         reference: SimulateData.m:23-27). Defaults to 1.
         """
+        device = torch.device(default_device() if device is None else device)
         ntx = self.num_tx
-        src = np.zeros((ntx, self.grid.ny, self.grid.nx), dtype=dtype)
-        amp = np.ones(ntx, dtype=dtype) if amplitudes is None else np.asarray(amplitudes, dtype=dtype)
+        src = torch.zeros((ntx, self.grid.ny, self.grid.nx),
+                          dtype=torch.complex64, device=device)
+        amp = (torch.ones(ntx, dtype=torch.complex64, device=device)
+               if amplitudes is None else
+               torch.as_tensor(amplitudes, dtype=torch.complex64, device=device))
         tx = self.tx_include
+
+        def idx(a):
+            return torch.as_tensor(a[tx], dtype=torch.long, device=device)
+
+        rows = torch.arange(ntx, device=device)
         if self.elem_w4 is None:
-            src[np.arange(ntx), self.y_idx[tx], self.x_idx[tx]] = amp
+            src.index_put_((rows, idx(self.y_idx), idx(self.x_idx)), amp)
         else:
-            for k in range(4):
-                np.add.at(src, (np.arange(ntx), self.elem_y4[tx, k],
-                                self.elem_x4[tx, k]),
-                          amp * self.elem_w4[tx, k])
+            # a transmitter's four corners are distinct pixels, so each sum
+            # is 0 + amp * w, bit for bit numpy's np.add.at
+            w = torch.as_tensor(self.elem_w4[tx], device=device)
+            src.index_put_((rows[:, None].expand(-1, 4), idx(self.elem_y4),
+                            idx(self.elem_x4)), amp[:, None] * w,
+                           accumulate=True)
         return src
+
+    def source_fields(self, dtype=np.complex64, amplitudes=None) -> np.ndarray:
+        """:meth:`source_cube` built on the CPU, as a complex64 numpy array:
+        a host cube, for callers that want numpy. The port's own callers
+        build the cube on the device they solve on instead. ``dtype`` keeps
+        the JAX package's signature; any dtype but complex64 raises."""
+        if np.dtype(dtype) != np.complex64:
+            raise ValueError(
+                f"source cubes are complex64, not {np.dtype(dtype)}")
+        return self.source_cube(amplitudes, device="cpu").numpy()
 
     def sample_receivers_all(self, fields: np.ndarray) -> np.ndarray:
         """Sample fields (ntx, ny, nx) at ALL element pixels -> (ntx, num_elements)."""
