@@ -16,14 +16,13 @@ from __future__ import annotations
 import gc
 import subprocess
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 import devtrace
 import program
-import reference
 import spec
 import workload
 
@@ -37,16 +36,35 @@ class Malformed(RuntimeError):
 @dataclass
 class Readings:
     """What a per-layer metric's reader gets: the traced window's summary,
-    what the configuration asked of the program in it, and the shapes."""
+    what the configuration asked of the program in it (``counts``), the
+    sizes the loop runs at (``shapes``), and each program counter's count
+    over the window (``launched``, by its ``<module>:<attribute>`` name)."""
 
     summary: devtrace.Summary
     counts: dict
-    ny: int
-    nx: int
-    batch: int
+    shapes: dict
+    launched: dict = field(default_factory=dict)
+
+    @property
+    def ny(self) -> int:
+        return self.shapes["ny"]
+
+    @property
+    def nx(self) -> int:
+        return self.shapes["nx"]
+
+    @property
+    def batch(self) -> int:
+        return self.shapes["batch"]
 
     def layer(self, name: str) -> float:
+        """Device seconds of the kernels mapped to layer ``name``."""
         return self.summary.layer_s.get(name, 0.0)
+
+    def span(self, name: str) -> float:
+        """Device seconds of the kernels inside the program's span
+        ``name``; 0 where the trace holds no such span."""
+        return self.summary.span_s.get(name, 0.0)
 
 
 def log(msg: str) -> None:
@@ -73,7 +91,7 @@ def _must_run(cell, before: dict, after: dict, summary=None) -> None:
     for layer in cell.traffic.get("must_run", []):
         counters = {k["counter"] for k in cell.kernels.values()
                     if k["layer"] == layer}
-        if not any(after.get(c, 0) > before.get(c, 0) for c in counters):
+        if not any(after[c] > before[c] for c in counters):
             raise Malformed(f"layer {layer!r} launched no kernel "
                             f"(counters {sorted(counters)})")
         if summary is not None and summary.layer_s.get(layer, 0.0) <= 0.0:
@@ -181,16 +199,17 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, device,
     workload.sync(device)
     log(f"set-up done: {workload.now() - t_start:.3f} s")
 
-    before = program.launches()
+    before = program.launches({k["counter"] for k in cell.kernels.values()})
     if trace:
-        units, (dev_iv, host_iv) = _traced(loop, int(tr["trace_units"]), device)
+        units, (dev_iv, host_iv, span_iv) = _traced(loop, int(tr["trace_units"]),
+                                                    device)
         t0 = t_end = None
     else:
         t_window = workload.now()
         t0, t_end, units = workload.window(loop, seconds)
-    after = program.launches()
-    log(f"window done: {len(units)} units, launches "
-        f"{ {k: after[k] - before[k] for k in after} }")
+    after = program.launches(before)
+    launched = {k: after[k] - before[k] for k in after}
+    log(f"window done: {len(units)} units, launches {launched}")
     log(_spread(units))
     peak = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
 
@@ -201,15 +220,16 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, device,
            "count": 1, "memory_peak_bytes": peak}
     if trace:
         summary = devtrace.summarize(
-            dev_iv, host_iv, {k: m["layer"] for k, m in cell.kernels.items()})
-        log(f"trace: {len(dev_iv)} device and {len(host_iv)} host records; "
-            f"device time by kernel {devtrace.top(summary.kernel_s, 12)}")
+            dev_iv, host_iv, {k: m["layer"] for k, m in cell.kernels.items()},
+            span_iv)
+        log(f"trace: {len(dev_iv)} device, {len(host_iv)} host and "
+            f"{len(span_iv)} span records; device time by kernel "
+            f"{devtrace.top(summary.kernel_s, 12)}; by span "
+            f"{devtrace.top(summary.span_s, 12)}")
         if cuda:
             _must_run(cell, before, after, summary)
         metrics = _per_layer(cell, Readings(
-            summary, loop.counts(len(units)),
-            *reference.grid_of(cell.config["grid"]).shape,
-            batch=int(cell.config["ring"]["num_elements"])))
+            summary, loop.counts(len(units)), loop.shapes(), launched))
         dev.update(busy_s=summary.busy_s, window_s=summary.window_s)
         result["breakdown"] = {"device_ops": devtrace.top(summary.kernel_s),
                                "idle_gaps": devtrace.top(summary.idle_by_host)}

@@ -1,14 +1,18 @@
-"""Write a configuration's stored receiver data with the plain reference.
+"""Write a configuration's stored data with the plain reference.
 
     python3 benchmark/make_data.py --config ring2d-301 [--device cuda]
 
-For each phantom seed of the configuration's ``data`` entry: the breast
-phantom (phantom.py) on the finer grid the data are synthesized on, every
-element transmitting at unit amplitude, one reference solve in
-complex128, the field sampled at every element. The (P, n_elem, n_elem)
-complex64 matrices go to ``data.file``; a reconstruction scales each
-transmitter's row by its own amplitude, since the data are linear in the
-source. Imports nothing of the program.
+The configuration's ``data.maker`` names the maker: ``make(config,
+device)`` of ``references/<maker>.py``, which returns the arrays written to
+``data.file``. Without a maker, the ring maker below runs.
+
+The ring maker: for each phantom seed of the configuration's ``data``
+entry, the breast phantom (phantom.py) on the finer grid the data are
+synthesized on, every element transmitting at unit amplitude, one
+reference solve in complex128, the field sampled at every element. The
+(P, n_elem, n_elem) complex64 matrices go to ``data.file``; a
+reconstruction scales each transmitter's row by its own amplitude, since
+the data are linear in the source. Imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 import reference
+import spec
 from phantom import breast_phantom
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -44,6 +49,15 @@ def make(config: dict, device) -> np.ndarray:
     return np.stack(out)
 
 
+def arrays(config: dict, device, root: Path) -> dict:
+    """The arrays of the configuration's stored data, from its maker."""
+    maker = config["data"].get("maker")
+    if maker is not None:
+        return spec.module(root, "references", maker).make(config, device)
+    return {"rec": make(config, device),
+            "phantom_seeds": np.asarray(config["data"]["phantom_seeds"])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", required=True)
@@ -53,12 +67,12 @@ def main(argv=None) -> int:
     root = Path(args.root)
     with open(root / "benchmark" / "configs" / f"{args.config}.json") as fh:
         config = json.load(fh)
-    rec = make(config, torch.device(args.device))
+    data = arrays(config, torch.device(args.device), root)
     out = root / config["data"]["file"]
     out.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(out, rec=rec,
-                        phantom_seeds=np.asarray(config["data"]["phantom_seeds"]))
-    print(f"wrote {out} {rec.shape}", flush=True)
+    np.savez_compressed(out, **data)
+    print(f"wrote {out} " + ", ".join(f"{k} {v.shape}" for k, v in data.items()),
+          flush=True)
     return 0
 
 

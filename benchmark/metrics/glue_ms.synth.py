@@ -1,6 +1,6 @@
 """Device milliseconds a synthesized dataset outside K1, K2 and K3: the
-source cube's copy to the card, the planes, the residual's bookkeeping
-and the receivers' gather and copy back."""
+source cube's construction on the card, the planes, the residual's
+bookkeeping and the receivers' gather and copy back."""
 
 KERNEL_LAYERS = ("K1 factor", "K2 sweeps", "K3 stencil")
 

@@ -1,9 +1,13 @@
 """The system under test, the PyTorch/CUDA port, seen from the benchmark:
-its two timed entries called with the benchmark's inputs, its kernel build
-and its launch counters. This is the only module of the benchmark that
-imports the port."""
+what every entry shares (the port's kernel build, its counters by name,
+the configuration's settings as the port's objects) and the adapters of
+the two ring entries, ``invert_dataset`` and ``synthesize_ring_dataset``.
+The benchmark reaches the port through this module and the loops under
+``entries/``."""
 
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 
@@ -16,17 +20,9 @@ from waveforminversionust_tpu_torch.data.synthesize import (
     RingDataset, synthesize_ring_dataset)
 from waveforminversionust_tpu_torch.fwi.runner import invert_dataset
 from waveforminversionust_tpu_torch.models.grid import Grid2D
-from waveforminversionust_tpu_torch.ops import (_build, kernel_factor,
-                                                kernel_inv, kernel_stencil,
-                                                kernel_sweep, kernel_twisted)
+from waveforminversionust_tpu_torch.ops import _build
 
-# the port's launch counters, by the name a kernel mapping file gives
-_COUNTERS = {"kernel_factor": (kernel_factor, "launches"),
-             "kernel_sweep": (kernel_sweep, "launches"),
-             "kernel_stencil": (kernel_stencil, "launches"),
-             "kernel_twisted_factor": (kernel_twisted, "factor_launches"),
-             "kernel_twisted_sweep": (kernel_twisted, "sweep_launches"),
-             "kernel_inv": (kernel_inv, "launches")}
+PORT = "waveforminversionust_tpu_torch"
 
 
 def build_kernels() -> None:
@@ -35,9 +31,17 @@ def build_kernels() -> None:
         _build.load(name)
 
 
-def launches() -> dict:
-    """Kernel launches so far, by counter name."""
-    return {k: int(getattr(mod, attr, 0)) for k, (mod, attr) in _COUNTERS.items()}
+def launches(counters) -> dict:
+    """Each counter's count so far. A counter is named
+    ``"<module>:<attribute>"``, the module's path under the port's package
+    (``ops.kernel_factor:launches``)."""
+    out = {}
+    for name in counters:
+        mod, sep, attr = name.partition(":")
+        if not (sep and mod and attr):
+            raise ValueError(f"counter {name!r} is not <module>:<attribute>")
+        out[name] = int(getattr(importlib.import_module(f"{PORT}.{mod}"), attr))
+    return out
 
 
 def _grid(spec: dict) -> Grid2D:

@@ -10,6 +10,11 @@ found by name:
     traffic/<traffic>.json    the entry it drives and how (loop, iterations,
                               refactoring, live redraw, warm-up, trace units)
     cells/<cell>.json         samples checked and the limit of each number
+    entries/<entry>.py        ``Loop``: the closed loop through one entry of
+                              the program (inputs, timed call, counts,
+                              quantities, shapes, comparison)
+    references/<entry>.py     the entry's plain reference; a configuration's
+                              ``data.maker`` names one that writes its data
     metrics/<metric>.py       ``read(readings)`` -> value or None
     kernels/<kernel>.json     {"kernel", "layer", "counter"}
 """
@@ -71,11 +76,19 @@ def load(root: Path, name: str) -> Cell:
                 kernels=kernels)
 
 
-def reader(root: Path, metric: str):
-    """The ``read`` function of ``benchmark/metrics/<metric>.py``."""
-    path = Path(root) / "benchmark" / "metrics" / f"{metric}.py"
-    modname = "metric_" + metric.replace(".", "_").replace("-", "_")
+def module(root: Path, kind: str, name: str):
+    """``benchmark/<kind>/<name>.py`` of the tree at ``root``, loaded from
+    its file (a tree's own copy, never one imported from elsewhere)."""
+    path = Path(root) / "benchmark" / kind / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no {kind} file {path}")
+    modname = f"{kind}_" + name.replace(".", "_").replace("-", "_")
     sp = importlib.util.spec_from_file_location(modname, path)
     mod = importlib.util.module_from_spec(sp)
     sp.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(root: Path, metric: str):
+    """The ``read`` function of ``benchmark/metrics/<metric>.py``."""
+    return module(root, "metrics", metric).read

@@ -39,6 +39,7 @@ TINY = {
 # limits of the tiny cells, above what the program reads on the CPU
 # (vel_gap <= 0.15 m/s, loss_gap <= 1e-5, rec_gap <= 1e-6)
 TINY_LIMITS = {"tiny.live": {"vel_gap": 0.5, "loss_gap": 1e-4},
+               "tiny.frozen": {"vel_gap": 0.5, "loss_gap": 1e-4},
                "tinysim.shots": {"rec_gap": 1e-5}}
 
 
@@ -65,9 +66,11 @@ def add_cell(root: Path, cell: str, config: str, traffic: str,
 
 @pytest.fixture(scope="session")
 def tiny_tree(tmp_path_factory) -> Path:
-    """A copy of ``benchmark/`` and ``BENCHMARK.json`` with two tiny cells,
-    ``tiny.live`` and ``tinysim.shots``, and the tiny stored data made by
-    ``make_data.py`` on the CPU."""
+    """A copy of ``benchmark/`` and ``BENCHMARK.json`` with three tiny
+    cells, ``tiny.live``, ``tiny.frozen`` (the traffic of
+    ``ring2d-301.frozen`` at 4 iterations, reporting its K3 metric) and
+    ``tinysim.shots``, and the tiny stored data made by ``make_data.py`` on
+    the CPU."""
     import make_data
 
     root = tmp_path_factory.mktemp("bench")
@@ -80,6 +83,9 @@ def tiny_tree(tmp_path_factory) -> Path:
     live = json.loads((BENCH / "traffic" / "live.json").read_text())
     write_json(root / "benchmark" / "traffic" / "tinylive.json",
                dict(live, iterations=3))
+    frozen = json.loads((BENCH / "traffic" / "frozen.json").read_text())
+    write_json(root / "benchmark" / "traffic" / "tinyfrozen.json",
+               dict(frozen, iterations=4))
     bench = json.loads((root / "BENCHMARK.json").read_text())
     for name in ("tiny", "tinysim"):
         bench["configs"].append({"name": name, "source": "test", "reduced": [],
@@ -87,6 +93,13 @@ def tiny_tree(tmp_path_factory) -> Path:
                                  "why": "test"})
     write_json(root / "BENCHMARK.json", bench)
     add_cell(root, "tiny.live", "tiny", "tinylive", TINY_LIMITS["tiny.live"], 2)
+    add_cell(root, "tiny.frozen", "tiny", "tinyfrozen",
+             TINY_LIMITS["tiny.frozen"], 2)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for m in bench["per_layer"]:
+        if m["name"] == "stencil_roofline.recon":
+            m["workloads"].append("tiny.frozen")
+    write_json(root / "BENCHMARK.json", bench)
     add_cell(root, "tinysim.shots", "tinysim", "shots",
              TINY_LIMITS["tinysim.shots"])
     make_data.main(["--config", "tiny", "--device", "cpu", "--root", str(root)])

@@ -1,28 +1,15 @@
-"""Whole runs on the CPU at a tiny size, and a cell added from new files
-alone: the frozen-factor traffic (``refactor_every=2``, no live redraw)
-with its own per-layer metric, as a later change would add it."""
+"""Whole runs on the CPU at a tiny size, and what a cell added from files
+alone finds: the frozen-factor traffic of ``ring2d-301.frozen``
+(``refactor_every=2``, no live redraw) on the tiny configuration, with its
+own per-layer metric, added by ``conftest.tiny_tree`` as a later change
+adds a cell."""
 
-import json
-import shutil
 import time
 
 import pytest
 
 import harness
-from conftest import TINY_LIMITS, add_cell, write_json
-
-STENCIL_READER = '''"""K3's share of its roofline: the least time of the applies the
-configuration asks for over K3's device time."""
-
-from costs import apply_cost, least_seconds
-
-
-def read(r):
-    t, n = r.layer("K3 stencil"), r.counts["applies"]
-    if t <= 0 or n == 0:
-        return None
-    return 100.0 * n * least_seconds(apply_cost(r.ny, r.nx, r.batch)) / t
-'''
+from conftest import TINY_LIMITS
 
 
 def run(root, cell, seed=2**31 + 12345, seconds=1.0):
@@ -32,6 +19,7 @@ def run(root, cell, seed=2**31 + 12345, seconds=1.0):
 
 @pytest.mark.parametrize("cell,metrics", [
     ("tiny.live", {"setup_s", "recon_s", "frame_s_p95"}),
+    ("tiny.frozen", {"setup_s", "recon_s"}),
     ("tinysim.shots", {"setup_s", "synth_s"})])
 def test_a_run_is_correct_and_reports_its_metrics(tiny_tree, cell, metrics):
     result, lines = run(tiny_tree, cell)
@@ -56,26 +44,35 @@ def test_the_same_seed_makes_the_same_inputs(tiny_tree):
     assert not np.array_equal(a.inputs(3), a.inputs(4))
 
 
-def test_a_cell_added_from_files_alone(tiny_tree, tmp_path):
-    root = tmp_path / "tree"
-    shutil.copytree(tiny_tree, root)
-    live = json.loads((root / "benchmark/traffic/tinylive.json").read_text())
-    frozen = dict(live, refactor_every=2, live_every=None, iterations=4,
-                  end_to_end={"recon_s": "unit_s"})
-    write_json(root / "benchmark/traffic/frozen.json", frozen)
-    (root / "benchmark/metrics/stencil_roofline.recon.py").write_text(STENCIL_READER)
-    add_cell(root, "tiny.frozen", "tiny", "frozen", TINY_LIMITS["tiny.live"])
-    bench = json.loads((root / "BENCHMARK.json").read_text())
-    bench["per_layer"].append({
-        "name": "stencil_roofline.recon", "unit": "%", "better": "higher",
-        "source": "device_trace", "layer": "K3 stencil", "moves": "recon_s",
-        "workloads": ["tiny.frozen"]})
-    write_json(root / "BENCHMARK.json", bench)
-
-    result, lines = run(root, "tiny.frozen")
-    assert result["correct"], lines
-    assert set(result["metrics"]) == {"setup_s", "recon_s"}
+def test_a_cell_added_from_files_alone(tiny_tree):
     import spec
-    cell = spec.load(root, "tiny.frozen")
+    import workload
+    cell = spec.load(tiny_tree, "tiny.frozen")
+    assert [m["name"] for m in cell.end_to_end] == ["recon_s", "setup_s"]
     assert [m["name"] for m in cell.per_layer] == ["stencil_roofline.recon"]
-    assert cell.per_layer and callable(spec.reader(root, "stencil_roofline.recon"))
+    assert callable(spec.reader(tiny_tree, "stencil_roofline.recon"))
+    assert "K3 stencil" in cell.traffic["must_run"]
+    # 4 iterations, a factor every second: 2 factorizations, 2 stale
+    # iterations of one more solve and one apply forward and adjoint
+    assert workload.make(cell, 1, "cpu").counts(1) == {
+        "units": 1, "iterations": 4, "factorizations": 2, "solves": 16,
+        "applies": 4}
+
+
+def test_the_window_holds_a_unit_on_a_busy_host():
+    """A unit slower than the whole window still completes in it: the
+    window ends at its nominal end only once a unit has returned."""
+    import workload
+
+    class Slow:
+        def unit(self, k):
+            u = workload.Unit(k)
+            u.t_in = workload.now()
+            time.sleep(0.05)
+            u.t_done = workload.now()
+            return u
+
+    t0, t_end, units = workload.window(Slow(), 0.001)
+    assert len(units) == 1 and t_end == units[0].t_done > t0 + 0.001
+    t0, t_end, units = workload.window(Slow(), 0.12)
+    assert len(units) >= 3 and t_end == pytest.approx(t0 + 0.12)

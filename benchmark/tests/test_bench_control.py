@@ -23,7 +23,7 @@ def fails(numbers, limits):
     return any(numbers[k] > lim for k, lim in limits.items())
 
 
-@pytest.mark.parametrize("cell", ["tiny.live", "tinysim.shots"])
+@pytest.mark.parametrize("cell", ["tiny.live", "tiny.frozen", "tinysim.shots"])
 def test_control_fails_the_tiny_limits(tiny_tree, cell):
     numbers, _ = control_numbers(tiny_tree, cell, 2**31 + 5, "cpu")
     assert fails(numbers, TINY_LIMITS[cell]), numbers

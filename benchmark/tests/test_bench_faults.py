@@ -3,7 +3,7 @@ the harness's look for a card is skipped (device "cpu") and the rest of
 a run is driven at a tiny size. Each fault a cell can have: a step that
 returns its state unchanged, half of the batch (the transmitters) left
 out with the rest standing in for it, and an answer altered where it is
-produced. Both cells run on one card, so no exchange between cards can
+produced. Every cell runs on one card, so no exchange between cards can
 be left out."""
 
 import time
@@ -36,12 +36,15 @@ def half_batch(solve):
 
 
 def frozen_step(make_step):
+    """The CG state (slowness, gradient, direction) handed back unchanged.
+    The factor the step built goes on, as the solver's cache, so that a
+    frozen-factor run reaches its stale iterations and its comparison."""
     def broken(*args, **kw):
         step = make_step(*args, **kw)
 
         def s(carry, it, local):
-            _, metrics = step(carry, it, local)
-            return carry, metrics
+            new, metrics = step(carry, it, local)
+            return carry._replace(factor=new.factor), metrics
         return s
     return broken
 
@@ -76,8 +79,9 @@ def altered_row(synth):
     return broken
 
 
+@pytest.mark.parametrize("cell", ["tiny.live", "tiny.frozen"])
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
-def test_inversion_faults_are_not_correct(tiny_tree, monkeypatch, fault):
+def test_inversion_faults_are_not_correct(tiny_tree, monkeypatch, fault, cell):
     if fault == "unchanged":
         monkeypatch.setattr(optimizers, "make_cg_step",
                             frozen_step(optimizers.make_cg_step))
@@ -87,7 +91,7 @@ def test_inversion_faults_are_not_correct(tiny_tree, monkeypatch, fault):
     else:
         monkeypatch.setattr(program, "invert_dataset",
                             altered_frame(program.invert_dataset))
-    result, lines = run(tiny_tree, "tiny.live")
+    result, lines = run(tiny_tree, cell)
     assert result["correct"] is False, lines
 
 

@@ -28,7 +28,8 @@ def test_top_level_keys():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_load(cell):
     c = spec.load(ROOT, cell)
-    assert c.traffic["entry"] in ("invert_dataset", "synthesize_ring_dataset")
+    for kind in ("entries", "references"):
+        assert (BENCH / kind / f"{c.traffic['entry']}.py").is_file()
     assert c.check["samples"] >= 1 and c.check["limits"]
     assert all(v > 0 for v in c.check["limits"].values())
     reported = {m["name"] for m in c.end_to_end} - {"setup_s"}
@@ -64,5 +65,6 @@ def test_metrics_and_kernels_are_files():
     for p in (BENCH / "kernels").glob("*.json"):
         k = json.loads(p.read_text())
         assert set(k) == {"kernel", "layer", "counter"} and p.stem == k["kernel"]
+        assert re.fullmatch(r"[A-Za-z_][\w.]*:[A-Za-z_]\w*", k["counter"])
     for p in (BENCH / "traffic").glob("*.json"):
         assert "entry" in json.loads(p.read_text())

@@ -13,10 +13,20 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "waveforminversionust_tpu"}
 # the program (the port) and the benchmark modules that reach it
 PROGRAM = {"waveforminversionust_tpu_torch", "program", "workload", "harness",
            "calibrate", "run"}
-# the reference side: the plain reference, its inputs and its arithmetic
-REFERENCE = ["reference.py", "phantom.py", "make_data.py", "costs.py",
-             "devtrace.py", "spec.py"]
+# the reference side: the plain reference, its inputs and its arithmetic,
+# each entry's reference and each metric's reader
+REFERENCE = sorted(
+    [BENCH / n for n in ("reference.py", "phantom.py", "make_data.py",
+                         "costs.py", "devtrace.py", "spec.py")]
+    + list((BENCH / "references").glob("*.py"))
+    + list((BENCH / "metrics").glob("*.py")))
+# the program side's loops, one an entry
+ENTRIES = sorted((BENCH / "entries").glob("*.py"))
 MODULES = sorted(p for p in BENCH.rglob("*.py") if "__pycache__" not in p.parts)
+
+
+def _id(path):
+    return str(path.relative_to(BENCH))
 
 
 def top_level_imports(path):
@@ -34,16 +44,23 @@ def top_level_imports(path):
     return names
 
 
-@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(BENCH)))
+@pytest.mark.parametrize("path", MODULES, ids=_id)
 def test_no_jax(path):
     assert not top_level_imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("name", REFERENCE + [
-    p.name for p in sorted((BENCH / "metrics").glob("*.py"))])
-def test_reference_side_imports_nothing_of_the_program(name):
-    path = BENCH / name if (BENCH / name).exists() else BENCH / "metrics" / name
+@pytest.mark.parametrize("path", REFERENCE, ids=_id)
+def test_reference_side_imports_nothing_of_the_program(path):
     assert not top_level_imports(path) & (FORBIDDEN | PROGRAM)
+
+
+@pytest.mark.parametrize("path", ENTRIES, ids=_id)
+def test_each_entry_is_a_loop_beside_its_reference(path):
+    # an entry's loop is program side, so it is held to test_no_jax; its
+    # plain reference is a file of its own under references/, held above
+    assert not top_level_imports(path) & FORBIDDEN
+    assert "class Loop" in path.read_text()
+    assert (BENCH / "references" / path.name).is_file()
 
 
 def test_the_check_compares_whole_names():
